@@ -1,0 +1,250 @@
+"""Chainable builders for the Lasso and the Elastic Net (counterpart of
+``admm_tpu/api.py``; reference: NAMESPACE:9-13, R/30_admm_lasso.R)::
+
+    fit = admm_lasso(x, y).penalty(nlambda=50).opts(eps_rel=1e-3).fit()
+    fit.beta     # scipy.sparse CSC, (p+1) x nlambda, intercept in row 0
+
+Validation follows the JAX package's builders line by line.  ``device``
+says where numpy inputs go (default ``"cuda"``); a tensor input stays on
+its own device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .models.lasso import enet_path, lasso_path
+
+
+def _check_xy(x, y):
+    """Shape and finiteness checks; numpy inputs stay numpy, tensors stay
+    tensors (on their device)."""
+    if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+        x = torch.as_tensor(x)
+        y = torch.as_tensor(y, device=x.device).reshape(-1)
+        if not x.is_floating_point():
+            x = x.to(torch.float64)
+        if not y.is_floating_point():
+            y = y.to(torch.float64)
+        finite = lambda t: bool(torch.isfinite(t).all())
+    else:
+        x = np.asarray(x)
+        y = np.asarray(y).ravel()
+        if not np.issubdtype(x.dtype, np.floating):
+            x = x.astype(np.float64)
+        if not np.issubdtype(y.dtype, np.floating):
+            y = y.astype(np.float64)
+        finite = lambda a: bool(np.isfinite(a).all())
+    if x.ndim != 2:
+        raise ValueError("x must be a 2-D matrix")
+    if x.shape[0] != y.shape[0]:
+        raise ValueError("nrow(x) should be equal to length(y)")
+    # NaN/Inf inputs would spin the solvers to maxit: fail loudly.
+    if not finite(x):
+        raise ValueError("x contains NaN or Inf")
+    if not finite(y):
+        raise ValueError("y contains NaN or Inf")
+    return x, y
+
+
+def _sparse_beta(beta0, coef):
+    """Pack a dense (nlambda, p) path and its intercepts into the
+    reference's sparse (p+1) x nlambda layout, intercept in row 0
+    (reference: src/Lasso.cpp:22-30, :91-92)."""
+    from scipy import sparse
+
+    beta0 = np.atleast_1d(beta0.detach().cpu().numpy().astype(np.float64))
+    coef = np.atleast_2d(coef.detach().cpu().numpy().astype(np.float64))
+    return sparse.csc_matrix(np.concatenate([beta0[:, None], coef], axis=1).T)
+
+
+class ADMMLassoFit:
+    """Lasso/Enet path fit (reference: R/30_admm_lasso.R:18-22).
+
+    Attributes: ``lambda_`` (nlambda,), ``beta`` sparse (p+1) x nlambda
+    with intercepts in row 0, ``niter`` (nlambda,).
+    """
+
+    def __init__(self, lambda_, beta, niter):
+        self.lambda_ = np.asarray(lambda_)
+        self.beta = beta
+        self.niter = np.asarray(niter)
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(lambda_={self.lambda_!r}, "
+                f"niter={self.niter!r})")
+
+    def plot(self, ax=None):
+        """The solution-path plot is not ported yet."""
+        raise NotImplementedError(
+            "fit.plot() is not ported to admm_tpu_torch yet")
+
+
+class ADMMLasso:
+    """Builder for the Lasso (reference: R/30_admm_lasso.R:2-15).
+
+    minimize 1/(2n) ||y - X beta||^2 + lambda ||beta||_1
+    """
+
+    _eps_default = 1e-5
+    _rho_default = -1.0
+
+    def __init__(self, x, y, intercept: bool = True,
+                 standardize: bool = True, device="cuda"):
+        self.x, self.y = _check_xy(x, y)
+        self.intercept = bool(intercept)
+        self.standardize = bool(standardize)
+        self.device = device
+        self.lambdas: Optional[np.ndarray] = None
+        self.nlambda = 100
+        n, p = self.x.shape
+        self.lambda_min_ratio = 0.01 if n < p else 1e-4
+        self.nthread = 1
+        self.maxit = 10000
+        self.eps_abs = self._eps_default
+        self.eps_rel = self._eps_default
+        self.rho = self._rho_default
+        self.path_mode = "batch"
+
+    # -- chainable setters ------------------------------------------------
+    def penalty(self, lambda_=None, nlambda: int = 100,
+                lambda_min_ratio: Optional[float] = None,
+                penalty_factor=None, lower_limits=None,
+                upper_limits=None, **kw):
+        """(reference: R/30_admm_lasso.R:72-96).  ``penalty_factor`` and
+        the coefficient limits are not ported yet and raise."""
+        for name, value in (("penalty_factor", penalty_factor),
+                            ("lower_limits", lower_limits),
+                            ("upper_limits", upper_limits)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name} is not ported to admm_tpu_torch yet")
+        if lambda_ is not None:
+            lam = np.sort(np.asarray(lambda_, dtype=np.float64).ravel())[::-1]
+            if np.any(lam <= 0):
+                raise ValueError("lambda must be positive")
+            self.lambdas = lam
+        if nlambda <= 0:
+            raise ValueError("nlambda must be a positive integer")
+        if lambda_min_ratio is None:
+            n, p = self.x.shape
+            lambda_min_ratio = 0.01 if n < p else 1e-4
+        if not (0.0 < lambda_min_ratio < 1.0):
+            raise ValueError("lambda_min_ratio must be within (0, 1)")
+        self.nlambda = int(nlambda)
+        self.lambda_min_ratio = float(lambda_min_ratio)
+        return self
+
+    def parallel(self, nthread: int = 2, **kw):
+        """(reference: R/30_admm_lasso.R:99-112).  The consensus solver is
+        not ported yet: ``nthread > 1`` raises."""
+        nthread = max(int(nthread), 1)
+        if nthread >= self.x.shape[1] / 5:
+            raise ValueError("nthread cannot exceed ncol(x)/5")
+        if nthread > 1:
+            raise NotImplementedError(
+                "parallel(nthread > 1), the consensus solver, is not "
+                "ported to admm_tpu_torch yet")
+        self.nthread = nthread
+        return self
+
+    def opts(self, maxit: int = 10000, eps_abs: Optional[float] = None,
+             eps_rel: Optional[float] = None,
+             rho: Optional[float] = None, path_mode: str = "batch",
+             trace=False, **kw):
+        """(reference: R/30_admm_lasso.R:115-133).  ``path_mode``:
+        "batch" (default) or "scan"; "activeset" and ``trace`` are not
+        ported yet and raise."""
+        if maxit <= 0:
+            raise ValueError("maxit should be positive")
+        eps_abs = self._eps_default if eps_abs is None else eps_abs
+        eps_rel = self._eps_default if eps_rel is None else eps_rel
+        if eps_abs < 0 or eps_rel < 0:
+            raise ValueError("eps_abs and eps_rel should be nonnegative")
+        if rho is not None and rho <= 0:
+            raise ValueError("rho should be positive")
+        if path_mode not in ("batch", "scan", "activeset"):
+            raise ValueError(
+                "path_mode must be 'batch', 'scan' or 'activeset'")
+        if path_mode == "activeset":
+            raise NotImplementedError(
+                "path_mode='activeset' is not ported to admm_tpu_torch yet")
+        if trace is not False:
+            raise NotImplementedError(
+                "trace is not ported to admm_tpu_torch yet")
+        self.maxit = int(maxit)
+        self.eps_abs = float(eps_abs)
+        self.eps_rel = float(eps_rel)
+        self.rho = -1.0 if rho is None else float(rho)
+        self.path_mode = path_mode
+        return self
+
+    # -- fitting ----------------------------------------------------------
+    def _path_kwargs(self):
+        return dict(lambdas=self.lambdas, nlambda=self.nlambda,
+                    lambda_min_ratio=self.lambda_min_ratio,
+                    standardize=self.standardize, intercept=self.intercept,
+                    maxit=self.maxit, eps_abs=self.eps_abs,
+                    eps_rel=self.eps_rel, rho=self.rho,
+                    path_mode=self.path_mode, device=self.device)
+
+    def _fit_result(self, res) -> ADMMLassoFit:
+        return ADMMLassoFit(res.lambdas.detach().cpu().numpy(),
+                            _sparse_beta(res.beta0, res.coef),
+                            res.niter.detach().cpu().numpy())
+
+    def fit(self) -> ADMMLassoFit:
+        """(reference: R/30_admm_lasso.R:136-160)"""
+        return self._fit_result(lasso_path(self.x, self.y,
+                                           **self._path_kwargs()))
+
+    def __repr__(self):
+        n, p = self.x.shape
+        return (f"{type(self).__name__}(x=<{n} x {p}>, "
+                f"nlambda={self.nlambda}, nthread={self.nthread}, "
+                f"maxit={self.maxit}, eps_abs={self.eps_abs}, "
+                f"eps_rel={self.eps_rel}, rho={self.rho})")
+
+
+class ADMMEnet(ADMMLasso):
+    """Elastic-Net builder (reference: R/40_admm_enet.R:2-23).
+
+    minimize 1/(2n)||y - X b||^2 + lambda(alpha||b||_1 + (1-alpha)/2||b||_2^2)
+    """
+
+    def __init__(self, x, y, intercept: bool = True,
+                 standardize: bool = True, device="cuda"):
+        super().__init__(x, y, intercept, standardize, device)
+        self.alpha = 1.0
+
+    def penalty(self, lambda_=None, nlambda: int = 100,
+                lambda_min_ratio: Optional[float] = None,
+                alpha: float = 1.0, penalty_factor=None,
+                lower_limits=None, upper_limits=None, **kw):
+        """(reference: R/40_admm_enet.R:35-47)"""
+        if not (0.0 <= alpha <= 1.0):
+            raise ValueError("alpha must be within [0,1]")
+        super().penalty(lambda_, nlambda, lambda_min_ratio,
+                        penalty_factor=penalty_factor,
+                        lower_limits=lower_limits,
+                        upper_limits=upper_limits)
+        self.alpha = float(alpha)
+        return self
+
+    def fit(self) -> ADMMLassoFit:
+        return self._fit_result(enet_path(self.x, self.y, alpha=self.alpha,
+                                          **self._path_kwargs()))
+
+
+def admm_lasso(x, y, intercept: bool = True, standardize: bool = True,
+               device="cuda") -> ADMMLasso:
+    """Fit a Lasso model by ADMM (reference: R/30_admm_lasso.R:377-380)."""
+    return ADMMLasso(x, y, intercept, standardize, device)
+
+
+def admm_enet(x, y, intercept: bool = True, standardize: bool = True,
+              device="cuda") -> ADMMEnet:
+    """Fit an Elastic-Net model by ADMM (reference: R/40_admm_enet.R)."""
+    return ADMMEnet(x, y, intercept, standardize, device)

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the lambda path, with their plain forms.
+
+Counterpart of ``admm_tpu/ops``: each Pallas TPU kernel on the path has a
+CUDA C++ kernel for Hopper (``csrc/*.cu``, built by :mod:`._build` at first
+use) and a wrapper that launches it for CUDA tensors and runs the plain
+PyTorch form for CPU tensors.  Importing this package builds nothing.
+"""
+from __future__ import annotations
+
+from . import tall_path, wide_path
+
+#: (module, counter name) of every kernel's launch count.
+_COUNTERS = {
+    "tall_path_batch": (tall_path, "batch_launches"),
+    "tall_path_scan": (tall_path, "scan_launches"),
+    "wide_path_batch": (wide_path, "batch_launches"),
+}
+
+
+def launch_counts() -> dict:
+    """How many times each kernel has been launched in this process."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+__all__ = ["launch_counts", "reset_launch_counts", "tall_path", "wide_path"]

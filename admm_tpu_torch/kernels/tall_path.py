@@ -1,0 +1,196 @@
+"""Tall Lasso/Elastic-Net path kernels (n > p): wrappers and plain forms.
+
+``tall_path_batch`` replaces ``admm_tpu/ops/tall_path.py::_kernel`` (all
+lambdas at once, cold start) and ``tall_path_scan`` replaces
+``::_scan_kernel`` (one lane warm-started in sequence over lambda).  On a
+CUDA tensor each launches its hand-written kernel in
+``csrc/tall_path.cu``; on a CPU tensor each runs its plain PyTorch form,
+``tall_path_batch_reference`` / ``tall_path_scan_reference``, which is a
+direct translation of the fused loop.  Both take exact (unpadded) shapes:
+Minv (p, p), Xty (p,), ilams (k,) -> ``(z (k, p), niter (k,) int32)``.
+
+The kernels hold 8p floats of lane state in shared memory (six float32
+rows and one float64 row), so they take ``p <= MAX_P``; the caller checks
+:func:`fits` before it calls.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check, load_library
+from ._common import (check_cuda_input, enet_prox, fadmm_momentum,
+                      matmul64, rnorm, sqsum)
+
+#: Largest p whose 8p floats of lane state fit one block's shared memory
+#: (232448 bytes on sm_90, less 2 KB for the reduction scratch).
+MAX_P = (232448 - 2048) // (8 * 4)
+
+#: Launch counts, one per kernel: each wrapper adds one where it launches.
+batch_launches = 0
+scan_launches = 0
+
+
+def fits(p: int) -> bool:
+    """Whether the tall kernels take a problem with ``p`` coefficients."""
+    return 1 <= p <= MAX_P
+
+
+def _sqrt_dim(p, dtype, device):
+    return torch.sqrt(torch.tensor(float(p), dtype=dtype, device=device))
+
+
+def tall_path_batch_reference(Minv, Xty, ilams, rho, eps_abs, eps_rel,
+                              alpha, maxit, *, restart_tol: float = 0.999):
+    """Plain PyTorch form of the batched kernel: K lanes of FADMM from a
+    cold start, lanes frozen once converged, one host read per
+    iteration for the all-done exit.  Products and squared norms
+    accumulate in float64 and round once, as in the kernel."""
+    p, k = Minv.shape[0], ilams.shape[0]
+    dtype, dev = Minv.dtype, Minv.device
+    sqrt_p = _sqrt_dim(p, dtype, dev)
+    rho = torch.as_tensor(rho, dtype=dtype, device=dev)
+    alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)
+    lam = ilams.to(dtype).reshape(k, 1)
+    Minv64 = Minv.to(torch.float64)
+
+    x = torch.zeros((k, p), dtype=dtype, device=dev)
+    z, y, adj_z, adj_y = (torch.zeros_like(x) for _ in range(4))
+    adj_a = torch.ones((k, 1), dtype=dtype, device=dev)
+    adj_c = torch.full((k, 1), 9999.0, dtype=dtype, device=dev)
+    done = torch.zeros((k, 1), dtype=torch.bool, device=dev)
+    niter = torch.zeros((k, 1), dtype=torch.int32, device=dev)
+    for _ in range(int(maxit)):
+        if bool(torch.all(done)):
+            break
+        eps_pri = torch.maximum(rnorm(x), rnorm(z)) * eps_rel + sqrt_p * eps_abs
+        eps_dua = rnorm(y) * eps_rel + sqrt_p * eps_abs
+        rhs = Xty - adj_y + rho * adj_z
+        x_new = matmul64(rhs, Minv64)
+        z_new = enet_prox(x_new + adj_y / rho, lam / rho, alpha)
+        r_dua = rho * rnorm(z_new - z)
+        r = x_new - z_new
+        r_pri = rnorm(r)
+        y_new = adj_y + rho * r
+        now_done = (r_pri < eps_pri) & (r_dua < eps_dua)
+        adj_z_new, adj_y_new, adj_a_new, adj_c_new = fadmm_momentum(
+            now_done, rho, r_pri, sqsum(z_new - adj_z), z_new, y_new, z, y, adj_z, adj_y, adj_a, adj_c, restart_tol)
+        pick = lambda new, old: torch.where(done, old, new)
+        x, z, y = pick(x_new, x), pick(z_new, z), pick(y_new, y)
+        adj_z, adj_y = pick(adj_z_new, adj_z), pick(adj_y_new, adj_y)
+        adj_a, adj_c = pick(adj_a_new, adj_a), pick(adj_c_new, adj_c)
+        niter = niter + (~done).to(torch.int32)
+        done = done | now_done
+    return z, niter.reshape(k)
+
+
+def tall_path_scan_reference(Minv, Xty, ilams, rho, eps_abs, eps_rel,
+                             alpha, maxit, *, restart_tol: float = 0.999):
+    """Plain PyTorch form of the scan kernel: one lane warm-started over
+    the lambda grid, momentum re-synchronised at each lambda
+    (``core.engine.warm_start``), one host read per iteration.  Products
+    and squared norms accumulate in float64 and round once, as in the
+    kernel."""
+    p, k = Minv.shape[0], ilams.shape[0]
+    dtype, dev = Minv.dtype, Minv.device
+    sqrt_p = _sqrt_dim(p, dtype, dev)
+    rho = torch.as_tensor(rho, dtype=dtype, device=dev)
+    alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)
+    Minv64 = Minv.to(torch.float64)
+
+    x = torch.zeros((p,), dtype=dtype, device=dev)
+    z, y = torch.zeros_like(x), torch.zeros_like(x)
+    z_out = torch.empty((k, p), dtype=dtype, device=dev)
+    niters = []
+    for kk in range(k):
+        lam = ilams[kk].to(dtype)
+        adj_z, adj_y = z, y
+        adj_a = torch.ones((), dtype=dtype, device=dev)
+        adj_c = torch.full((), 9999.0, dtype=dtype, device=dev)
+        it = 0
+        while it < maxit:
+            eps_pri = (torch.maximum(rnorm(x), rnorm(z)) * eps_rel
+                       + sqrt_p * eps_abs)
+            eps_dua = rnorm(y) * eps_rel + sqrt_p * eps_abs
+            rhs = Xty - adj_y + rho * adj_z
+            x_new = matmul64(rhs, Minv64)
+            z_new = enet_prox(x_new + adj_y / rho, lam / rho, alpha)
+            r_dua = rho * rnorm(z_new - z)
+            r = x_new - z_new
+            r_pri = rnorm(r)
+            y_new = adj_y + rho * r
+            now_done = (r_pri < eps_pri) & (r_dua < eps_dua)
+            adj_z, adj_y, adj_a, adj_c = fadmm_momentum(
+                now_done, rho, r_pri, sqsum(z_new - adj_z),
+                z_new, y_new, z, y, adj_z, adj_y, adj_a, adj_c, restart_tol)
+            x, z, y = x_new, z_new, y_new
+            it += 1
+            if bool(now_done):
+                break
+        z_out[kk] = z
+        niters.append(it)
+    return z_out, torch.tensor(niters, dtype=torch.int32, device=dev)
+
+
+def _launch(entry, Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
+            restart_tol):
+    p, k = Minv.shape[0], ilams.shape[0]
+    dev = Minv.device
+    check_cuda_input("Minv", Minv, (p, p), dev)
+    check_cuda_input("Xty", Xty, (p,), dev)
+    check_cuda_input("ilams", ilams, (k,), dev)
+    if not fits(p):
+        raise ValueError(f"tall path kernels take 1 <= p <= {MAX_P}, got {p}")
+    if k < 1:
+        raise ValueError("ilams must hold at least one lambda")
+    lib = load_library()
+    z = torch.empty((k, p), dtype=torch.float32, device=dev)
+    niter = torch.empty((k,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(
+            Minv.data_ptr(), Xty.data_ptr(), ilams.data_ptr(), z.data_ptr(),
+            niter.data_ptr(), p, k, float(rho), float(eps_abs),
+            float(eps_rel), float(alpha), int(maxit), float(restart_tol),
+            stream)
+    check(lib, err, entry)
+    return z, niter
+
+
+def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
+                    *, restart_tol: float = 0.999):
+    """All lambdas of the tall path at once (``tall_path_batch_pallas``).
+
+    CUDA tensors launch ``tall_path_batch_kernel``; CPU tensors run
+    :func:`tall_path_batch_reference`.  Returns ``(z (k, p), niter (k,))``.
+    """
+    global batch_launches
+    if Minv.device.type == "cpu":
+        return tall_path_batch_reference(Minv, Xty, ilams, rho, eps_abs,
+                                         eps_rel, alpha, maxit,
+                                         restart_tol=restart_tol)
+    out = _launch("admm_tall_path_batch", Minv, Xty, ilams, rho, eps_abs,
+                  eps_rel, alpha, maxit, restart_tol)
+    batch_launches += 1
+    return out
+
+
+def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
+                   *, restart_tol: float = 0.999):
+    """The warm-started sequential tall path (``tall_path_scan_pallas``).
+
+    CUDA tensors launch ``tall_path_scan_kernel``; CPU tensors run
+    :func:`tall_path_scan_reference`.  Returns ``(z (k, p), niter (k,))``.
+    """
+    global scan_launches
+    if Minv.device.type == "cpu":
+        return tall_path_scan_reference(Minv, Xty, ilams, rho, eps_abs,
+                                        eps_rel, alpha, maxit,
+                                        restart_tol=restart_tol)
+    out = _launch("admm_tall_path_scan", Minv, Xty, ilams, rho, eps_abs,
+                  eps_rel, alpha, maxit, restart_tol)
+    scan_launches += 1
+    return out
+
+
+__all__ = ["MAX_P", "fits", "tall_path_batch", "tall_path_batch_reference",
+           "tall_path_scan", "tall_path_scan_reference"]

@@ -1,0 +1,438 @@
+"""Lasso / Elastic-Net lambda-path solvers, tall and wide regimes
+(counterpart of ``admm_tpu/models/lasso.py``).
+
+Model (glmnet objective; reference: src/Lasso.cpp:52-55)::
+
+    minimize  1/(2n) ||y - X beta||^2
+              + lambda * (alpha ||beta||_1 + (1-alpha)/2 ||beta||_2^2)
+
+The solver works on standardized data with the internal penalty
+``ilambda = lambda * n / scale_y`` (reference: src/Lasso.cpp:67-99), and
+dispatches on shape (reference: src/Lasso.cpp:73-76):
+
+* tall (n > p): FADMM on ``x - z = 0`` against a cached ridge inverse
+  ``(X'X + rho I)^-1``, rho fixed at ``eigmax(X'X)^(1/3) lambda^(2/3)``
+  (reference: src/ADMMLassoTall.h:9-20, :70-97, :194-202);
+* wide (p >= n): plain ADMM with a linearized x-update and the adaptive
+  rho ladder (reference: src/ADMMLassoWide.h:13-25, :129-165).
+
+Two path modes in each regime: "scan" warm-starts the lambdas in
+sequence (the reference's protocol), "batch" solves them all at once as
+lanes.  In float32 the path runs through the hand-written kernels of
+:mod:`admm_tpu_torch.kernels` (their plain PyTorch forms on the CPU);
+float64, and shapes past a kernel's shared-memory rule, take the generic
+engines of :mod:`admm_tpu_torch.core.engine`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.engine import (ADMMState, ProblemOps, col, make_admm_solver,
+                           make_batched_solver, make_fadmm_solver,
+                           make_state, warm_start)
+from ..core.prox import enet_prox, l2norm, sqnorm
+from ..data.standardize import StdStats, recover, standardize
+from ..kernels import tall_path, wide_path
+from ..linalg import dot, gram, ridge_inverse, spectral_radius_gram, spectral_radius_sym
+
+
+class PathResult(NamedTuple):
+    """Lambda-path result on the original data scale."""
+    lambdas: torch.Tensor  # (nlambda,) user-scale penalty grid
+    beta0: torch.Tensor    # (nlambda,) intercepts
+    coef: torch.Tensor     # (nlambda, p) coefficients
+    niter: torch.Tensor    # (nlambda,) int32 ADMM iteration counts
+    trace: Optional[torch.Tensor] = None
+
+
+# Wide scan-mode solves at or past this p auto-dispatch, in the JAX
+# package, to the gathered active-set solver, which is not ported yet.
+_ACTIVESET_AUTO_P = 20000
+
+
+# ---------------------------------------------------------------------------
+# Kernel shape rules
+# ---------------------------------------------------------------------------
+
+def _use_kernel_tall(p: int, dtype) -> bool:
+    """Tall path kernels: float32, and 8p floats of lane state in one
+    block's shared memory (``p <= kernels.tall_path.MAX_P``)."""
+    return dtype == torch.float32 and tall_path.fits(p)
+
+
+def _use_kernel_wide(n: int, p: int, dtype) -> bool:
+    """Wide path kernel: float32, and ``3p + 5n`` floats of lane state in
+    one block's shared memory."""
+    return dtype == torch.float32 and wide_path.fits(n, p)
+
+
+# ---------------------------------------------------------------------------
+# Tall regime (n > p): FADMM with cached ridge inverse
+# ---------------------------------------------------------------------------
+
+def _tall_ops(Minv, Xty, alpha, p) -> ProblemOps:
+    def next_x(st):
+        rhs = Xty - st.adj_y + col(st.rho) * st.adj_z
+        return rhs @ Minv.mT          # Minv @ rhs, lane by lane
+
+    def next_z(st, x_new):
+        v = x_new + st.adj_y / col(st.rho)
+        return enet_prox(v, col(st.lam / st.rho), alpha), st.aux
+
+    return ProblemOps(
+        next_x=next_x,
+        next_z=next_z,
+        primal_residual=lambda st, x, z, aux: x - z,
+        eps_primal_scale=lambda st: torch.maximum(l2norm(st.x), l2norm(st.z)),
+        eps_dual_scale=lambda st: l2norm(st.y),
+        dual_residual=lambda st, z_new: st.rho * l2norm(z_new - st.z),
+        combined_extra=lambda st, z_new: sqnorm(z_new - st.adj_z),
+        dim_main=p, dim_dual=p,
+    )
+
+
+def _tall_setup(Xs, ys, lam_first, rho0):
+    """Ridge inverse, X'y and rho.  Auto-rho is the power law
+    ``cbrt(sprad) * lambda^(2/3)`` (reference: src/ADMMLassoTall.h:194-202);
+    torch has no cbrt, so ``pow(1/3)`` of the positive sprad."""
+    XtX = gram(Xs)
+    Xty = dot(Xs.mT, ys)
+    if rho0 > 0:
+        rho = torch.tensor(rho0, dtype=Xs.dtype, device=Xs.device)
+    else:
+        sprad = spectral_radius_sym(XtX)
+        rho = sprad.pow(1.0 / 3.0) * lam_first ** (2.0 / 3.0)
+    Minv = ridge_inverse(XtX, rho)
+    return Minv, Xty, rho
+
+
+def _tall_engine(Xs, ys, lam_first, rho0, alpha):
+    """Tall-regime engine: cold state, solver, reported iterate (z,
+    reference: src/Lasso.cpp:108)."""
+    p = Xs.shape[1]
+    Minv, Xty, rho = _tall_setup(Xs, ys, lam_first, rho0)
+    solve = make_fadmm_solver(_tall_ops(Minv, Xty, alpha, p), adapt_rho=False)
+    zeros = torch.zeros((p,), dtype=Xs.dtype, device=Xs.device)
+    st0 = make_state(zeros, zeros, zeros, rho, lam_first)
+    return st0, solve, (lambda st: st.z)
+
+
+def _scan_path(st0, solve, report, ilams, maxit, eps_abs, eps_rel):
+    """Warm-started loop over the lambda grid (any engine)."""
+    st = st0
+    coefs, niter = [], []
+    for lam in ilams:
+        st = solve(warm_start(st, lam), maxit, eps_abs, eps_rel)
+        coefs.append(report(st))
+        niter.append(st.it)
+    return st, torch.stack(coefs), torch.stack(niter)
+
+
+def _solve_path_tall(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel, alpha):
+    if _use_kernel_tall(Xs.shape[1], Xs.dtype):
+        Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], rho0)
+        return tall_path.tall_path_scan(Minv.contiguous(), Xty.contiguous(),
+                                        ilams.contiguous(), rho, eps_abs,
+                                        eps_rel, alpha, maxit)
+    st0, solve, report = _tall_engine(Xs, ys, ilams[0], rho0, alpha)
+    _, coefs, niter = _scan_path(st0, solve, report, ilams, maxit, eps_abs,
+                                 eps_rel)
+    return coefs, niter
+
+
+def _batched_cold_states(k, dims, rho, ilams, aux_dim=None) -> ADMMState:
+    """Stacked cold-start states, one lane per lambda."""
+    dtype, dev = ilams.dtype, ilams.device
+    zeros = torch.zeros((k, dims), dtype=dtype, device=dev)
+    ones = torch.ones((k,), dtype=dtype, device=dev)
+    aux = (None if aux_dim is None
+           else torch.zeros((k, aux_dim), dtype=dtype, device=dev))
+    return ADMMState(
+        x=zeros, z=zeros, y=zeros, adj_z=zeros, adj_y=zeros, aux=aux,
+        adj_a=ones, adj_c=9999.0 * ones,
+        rho=rho * ones, lam=ilams.clone(),
+        eps_pri=0.0 * ones, eps_dua=0.0 * ones,
+        r_pri=9999.0 * ones, r_dua=9999.0 * ones,
+        it=torch.zeros((k,), dtype=torch.int32, device=dev),
+        done=torch.zeros((k,), dtype=torch.bool, device=dev),
+    )
+
+
+def _solve_path_tall_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
+                           alpha):
+    """All lambdas at once, one shared rho and ridge inverse (the
+    reference's rho is set at the first lambda and never changes,
+    reference: src/ADMMLassoTall.h:96-97, :219-230)."""
+    p = Xs.shape[1]
+    Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], rho0)
+    if _use_kernel_tall(p, Xs.dtype):
+        return tall_path.tall_path_batch(Minv.contiguous(), Xty.contiguous(),
+                                         ilams.contiguous(), rho, eps_abs,
+                                         eps_rel, alpha, maxit)
+    engine = make_fadmm_solver(_tall_ops(Minv, Xty, alpha, p),
+                               adapt_rho=False)
+    st = _batched_cold_states(ilams.shape[0], p, rho, ilams)
+    st = make_batched_solver(engine)(st, maxit, eps_abs, eps_rel)
+    return st.z, st.it
+
+
+# ---------------------------------------------------------------------------
+# Wide regime (p >= n): linearized ADMM, adaptive rho
+# ---------------------------------------------------------------------------
+
+def _wide_setup(Xs, ys, rho_lams, rho0, alpha, enet_lambda0_scale):
+    """lambda0 (with the Enet inflation, reference: src/ADMMEnet.h:56),
+    the matrix-free spectral radius of XX', and auto-rho
+    ``cbrt(lambda / sprad)`` (reference: src/ADMMLassoWide.h:227-228) —
+    scalar for the scan path, per lane for the batch path."""
+    lambda0 = torch.max(torch.abs(dot(Xs.mT, ys)))
+    if enet_lambda0_scale:
+        lambda0 = lambda0 / (alpha + 1e-4)
+    sprad = spectral_radius_gram(Xs)
+    if rho0 > 0:
+        rho = torch.tensor(rho0, dtype=Xs.dtype, device=Xs.device)
+    else:
+        rho = (rho_lams / sprad).pow(1.0 / 3.0)
+    return lambda0, sprad, rho
+
+
+def _wide_ops(Xs, ys, sprad, lambda0, alpha, n, p) -> ProblemOps:
+    sqrt_sprad = torch.sqrt(sprad)
+
+    def next_x(st):
+        tmp = st.aux + st.z + st.y / col(st.rho)
+        v = st.x - (tmp @ Xs) / sprad
+        x_new = enet_prox(v, col(st.lam / (st.rho * sprad)), alpha)
+        # Early exit: a penalty at or above lambda0 keeps beta = 0, with
+        # the JAX package's relative slack (reference:
+        # src/ADMMLassoWide.h:131-135 subtracts an absolute one).
+        return torch.where(col(st.lam > lambda0 * (1.0 - 1e-5)),
+                           torch.zeros_like(x_new), x_new)
+
+    def next_z(st, x_new):
+        cache_Ax = x_new @ Xs.mT
+        z = -(ys + st.y + col(st.rho) * cache_Ax) / (1.0 + col(st.rho))
+        return z, cache_Ax
+
+    return ProblemOps(
+        next_x=next_x,
+        next_z=next_z,
+        primal_residual=lambda st, x, z, aux: aux + z,
+        eps_primal_scale=lambda st: torch.maximum(l2norm(st.aux),
+                                                  l2norm(st.z)),
+        eps_dual_scale=lambda st: sqrt_sprad * l2norm(st.y),
+        dual_residual=lambda st, z_new: st.rho * sqrt_sprad
+        * l2norm(z_new - st.z),
+        combined_extra=None,
+        dim_main=p, dim_dual=n,
+    )
+
+
+def _wide_engine(Xs, ys, lam_first, rho0, alpha, enet_lambda0_scale):
+    """Wide-regime engine: cold state, solver, reported iterate (x,
+    reference: src/Lasso.cpp:119)."""
+    n, p = Xs.shape
+    dtype, dev = Xs.dtype, Xs.device
+    lambda0, sprad, rho = _wide_setup(Xs, ys, lam_first, rho0, alpha,
+                                      enet_lambda0_scale)
+    solve = make_admm_solver(_wide_ops(Xs, ys, sprad, lambda0, alpha, n, p),
+                             adapt_rho=True)
+    zn = torch.zeros((n,), dtype=dtype, device=dev)
+    st0 = make_state(torch.zeros((p,), dtype=dtype, device=dev), zn, zn, rho,
+                     lam_first, aux=zn)
+    return st0, solve, (lambda st: st.x)
+
+
+def _solve_path_wide(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel, alpha,
+                     enet_lambda0_scale):
+    st0, solve, report = _wide_engine(Xs, ys, ilams[0], rho0, alpha,
+                                      enet_lambda0_scale)
+    _, coefs, niter = _scan_path(st0, solve, report, ilams, maxit, eps_abs,
+                                 eps_rel)
+    return coefs, niter
+
+
+def _solve_path_wide_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
+                           alpha, enet_lambda0_scale):
+    """All lambdas at once; rho is per lane (no factorization depends on
+    it, so each lambda keeps its own auto-rho and ladder)."""
+    n, p = Xs.shape
+    k = ilams.shape[0]
+    lambda0, sprad, rho = _wide_setup(Xs, ys, ilams, rho0, alpha,
+                                      enet_lambda0_scale)
+    rhos = torch.broadcast_to(rho, (k,)).contiguous()
+    if _use_kernel_wide(n, p, Xs.dtype):
+        return wide_path.wide_path_batch(Xs.contiguous(), ys.contiguous(),
+                                         ilams.contiguous(), rhos, sprad,
+                                         lambda0, eps_abs, eps_rel, alpha,
+                                         maxit)
+    engine = make_admm_solver(_wide_ops(Xs, ys, sprad, lambda0, alpha, n, p),
+                              adapt_rho=True)
+    st = _batched_cold_states(k, p, 1.0, ilams, aux_dim=n)
+    zn = torch.zeros((k, n), dtype=Xs.dtype, device=Xs.device)
+    st = st._replace(rho=rhos, z=zn, y=zn, adj_z=zn, adj_y=zn)
+    st = make_batched_solver(engine)(st, maxit, eps_abs, eps_rel)
+    return st.x, st.it
+
+
+# ---------------------------------------------------------------------------
+# Path drivers (standardize -> lambda grid -> solve -> recover)
+# ---------------------------------------------------------------------------
+
+def _linspace(start, stop, num: int):
+    """``jnp.linspace``'s formula, start*(1-t) + stop*t; XLA's fused
+    evaluation of it still differs from this one by up to an ulp."""
+    if num == 1:
+        return start.reshape(1)
+    t = torch.arange(num - 1, dtype=start.dtype, device=start.device) / (num - 1)
+    out = start * (1 - t) + stop * t
+    return torch.cat([out, stop.reshape(1)])
+
+
+def _auto_lambdas(Xs, ys, stats: StdStats, nlambda, lambda_min_ratio,
+                  alpha, enet_scale):
+    """Auto lambda grid: log-linear from lambda0 down to ratio*lambda0
+    (reference: src/Lasso.cpp:78-89), on the user's scale."""
+    n = Xs.shape[0]
+    lam0_int = torch.max(torch.abs(dot(Xs.mT, ys)))
+    if enet_scale:
+        lam0_int = lam0_int / (alpha + 1e-4)
+    lmax = lam0_int / n * stats.scale_y
+    lmin = lambda_min_ratio * lmax
+    return torch.exp(_linspace(torch.log(lmax), torch.log(lmin), nlambda))
+
+
+def _path_auto(X, y, nlambda, lambda_min_ratio, rho, maxit, eps_abs,
+               eps_rel, alpha, weights, *, standardize_x, intercept,
+               enet_scale, path_mode):
+    Xs, ys, stats = standardize(X, y, standardize_x=standardize_x,
+                                intercept=intercept, weights=weights)
+    lams = _auto_lambdas(Xs, ys, stats, nlambda, lambda_min_ratio, alpha,
+                         enet_scale)
+    return _path_from_lams(Xs, ys, stats, lams, rho, maxit, eps_abs,
+                           eps_rel, alpha, standardize_x, intercept,
+                           enet_scale, path_mode)
+
+
+def _path_user(X, y, lams, rho, maxit, eps_abs, eps_rel, alpha, weights, *,
+               standardize_x, intercept, enet_scale, path_mode):
+    Xs, ys, stats = standardize(X, y, standardize_x=standardize_x,
+                                intercept=intercept, weights=weights)
+    return _path_from_lams(Xs, ys, stats, lams, rho, maxit, eps_abs,
+                           eps_rel, alpha, standardize_x, intercept,
+                           enet_scale, path_mode)
+
+
+def _path_from_lams(Xs, ys, stats: StdStats, lams, rho, maxit, eps_abs,
+                    eps_rel, alpha, standardize_x, intercept, enet_scale,
+                    path_mode="scan"):
+    n, p = Xs.shape
+    # Internal penalty scale (reference: src/Lasso.cpp:99).
+    ilams = lams * n / stats.scale_y
+    args = (Xs, ys, ilams, rho, maxit, eps_abs, eps_rel, alpha)
+    if n > p:
+        if path_mode == "batch":
+            coefs, niter = _solve_path_tall_batch(*args)
+        else:
+            coefs, niter = _solve_path_tall(*args)
+    elif path_mode == "batch":
+        coefs, niter = _solve_path_wide_batch(*args, enet_scale)
+    else:
+        coefs, niter = _solve_path_wide(*args, enet_scale)
+    beta0, coef = recover(stats, coefs, standardize_x=standardize_x,
+                          intercept=intercept)
+    return PathResult(lambdas=lams, beta0=beta0, coef=coef, niter=niter)
+
+
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    """A tensor stays on its own device; anything else goes to ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _not_ported(**options) -> None:
+    for name, value in options.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"{name} is not ported to admm_tpu_torch yet")
+
+
+def lasso_path(X, y, *, lambdas=None, nlambda: int = 100,
+               lambda_min_ratio: Optional[float] = None,
+               standardize: bool = True, intercept: bool = True,
+               maxit: int = 10000, eps_abs: float = 1e-5,
+               eps_rel: float = 1e-5, rho: float = -1.0,
+               alpha: float = 1.0, _enet_scale: bool = False,
+               path_mode: str = "scan", data_mesh=None,
+               trace_len: Optional[int] = None, weights=None,
+               penalty_factor=None, lower_limits=None, upper_limits=None,
+               exclude=None, offset=None, dfmax: Optional[int] = None,
+               pmax: Optional[int] = None, dtype=torch.float32,
+               device="cuda") -> PathResult:
+    """Solve the full Lasso / Elastic-Net lambda path.
+
+    Same arguments and defaults as ``admm_tpu.lasso_path`` (reference R
+    API: R/30_admm_lasso.R:31-49), plus ``device``: tensors stay on their
+    own device, anything else (numpy arrays, lists) goes to ``device``.
+
+    ``path_mode``: "scan" (default) warm-starts the lambdas in sequence,
+    the reference's protocol; "batch" solves all lambdas at once as lanes.
+    ``weights`` are glmnet's observation weights; ``offset`` is glmnet's
+    gaussian offset, an exact shift of the response.
+
+    Not ported yet, and raising ``NotImplementedError`` when given:
+    ``penalty_factor``, ``lower_limits``/``upper_limits``/``exclude``,
+    ``dfmax``/``pmax``, ``trace_len``, ``data_mesh``,
+    ``path_mode="activeset"`` and the scan-mode wide solve at
+    p >= 20000, which the JAX package sends to its active-set solver.
+    """
+    if path_mode not in ("scan", "batch", "activeset"):
+        raise ValueError(
+            "path_mode must be 'scan', 'batch' or 'activeset'")
+    _not_ported(penalty_factor=penalty_factor, lower_limits=lower_limits,
+                upper_limits=upper_limits, exclude=exclude, dfmax=dfmax,
+                pmax=pmax, trace_len=trace_len, data_mesh=data_mesh)
+    if path_mode == "activeset":
+        raise NotImplementedError(
+            "path_mode='activeset' is not ported to admm_tpu_torch yet")
+    X = _as_tensor(X, dtype, device)
+    y = _as_tensor(y, dtype, device).reshape(-1)
+    if offset is not None:
+        off = _as_tensor(offset, dtype, y.device).reshape(-1)
+        if off.shape != y.shape:
+            raise ValueError("offset must have one entry per row")
+        y = y - off
+    n, p = X.shape
+    if path_mode == "scan" and n <= p and p >= _ACTIVESET_AUTO_P:
+        raise NotImplementedError(
+            f"scan-mode wide paths at p >= {_ACTIVESET_AUTO_P} take the "
+            "active-set solver, which is not ported to admm_tpu_torch yet; "
+            "use path_mode='batch'")
+    if lambda_min_ratio is None:
+        lambda_min_ratio = 0.01 if n < p else 1e-4
+    w = None if weights is None else _as_tensor(weights, dtype, X.device)
+    kw = dict(standardize_x=standardize, intercept=intercept,
+              enet_scale=_enet_scale, path_mode=path_mode)
+    if lambdas is not None:
+        lams = torch.sort(_as_tensor(lambdas, dtype, X.device).reshape(-1),
+                          descending=True).values
+        return _path_user(X, y, lams, rho, maxit, eps_abs, eps_rel, alpha,
+                          w, **kw)
+    return _path_auto(X, y, int(nlambda), lambda_min_ratio, rho, maxit,
+                      eps_abs, eps_rel, alpha, w, **kw)
+
+
+def enet_path(X, y, *, alpha: float = 1.0, **kw) -> PathResult:
+    """Elastic-Net path (reference: src/Enet.cpp, R/40_admm_enet.R)."""
+    return lasso_path(X, y, alpha=alpha, _enet_scale=True, **kw)
+
+
+def adaptive_lasso_path(X, y, **kw) -> PathResult:
+    """The adaptive lasso of the JAX package: not ported yet (it is a
+    ``penalty_factor`` path, which waits for the per-coordinate options)."""
+    raise NotImplementedError(
+        "adaptive_lasso_path is not ported to admm_tpu_torch yet")
