@@ -1,30 +1,43 @@
 """admm_tpu_torch — the PyTorch/CUDA port of ``admm_tpu``.
 
-A second package beside the JAX one, for one NVIDIA H100.  Its first
-slice is the Lasso/Elastic-Net lambda path: standardization, the lambda
-grid, the tall (n > p) and wide (p >= n) solvers in "scan" and "batch"
-path modes, and recovery.  The three Pallas TPU kernels on that path are
-hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use::
+A second package beside the JAX one, for one NVIDIA H100.  It holds the
+reference's five exports: the Lasso/Elastic-Net lambda path (tall and
+wide, "scan" and "batch"), LAD and quantile regression, Basis Pursuit
+(one signal or a batch) and the Dantzig selector.  Five of the JAX
+package's Pallas TPU kernels are hand-written CUDA kernels here
+(``csrc/``, built with ``nvcc`` at first use)::
 
     import admm_tpu_torch
     fit = admm_tpu_torch.admm_lasso(x, y).fit()          # on "cuda"
     fit = admm_tpu_torch.admm_lasso(x, y, device="cpu").fit()
     fit.beta          # sparse (p+1) x nlambda, intercepts in row 0
+    admm_tpu_torch.admm_lad(x, y).fit().beta             # dense, intercept first
+    admm_tpu_torch.admm_bp(A, b).fit().beta              # sparse (p, 1)
 
 Public names and call signatures are the JAX package's; ``device`` says
-where numpy inputs go.
+where numpy inputs go.  LAD and BP take ``dtype``: None means
+``torch.float32`` (the kernels' precision, eps 2e-5), ``torch.float64``
+the reference's double precision (the generic engine, eps 1e-4).
 """
 from __future__ import annotations
 
-from .api import ADMMEnet, ADMMLasso, ADMMLassoFit, admm_enet, admm_lasso
+from .api import (ADMMBP, ADMMLAD, ADMMBPFit, ADMMDantzig, ADMMEnet,
+                  ADMMLADFit, ADMMLasso, ADMMLassoFit, admm_bp, admm_dantzig,
+                  admm_enet, admm_lad, admm_lasso)
 from .data.standardize import StdStats
+from .models.bp import BPResult, bp_fit, bp_fit_batch
+from .models.dantzig import dantzig_path
+from .models.lad import LADResult, lad_fit, quantile_fit
 from .models.lasso import (PathResult, adaptive_lasso_path, enet_path,
                            lasso_path)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
-    "admm_lasso", "admm_enet", "ADMMLasso", "ADMMEnet", "ADMMLassoFit",
-    "lasso_path", "enet_path", "adaptive_lasso_path", "PathResult",
-    "StdStats", "__version__",
+    "admm_lasso", "admm_enet", "admm_lad", "admm_bp", "admm_dantzig",
+    "ADMMLasso", "ADMMEnet", "ADMMLAD", "ADMMBP", "ADMMDantzig",
+    "ADMMLassoFit", "ADMMLADFit", "ADMMBPFit",
+    "lasso_path", "enet_path", "adaptive_lasso_path", "lad_fit",
+    "quantile_fit", "bp_fit", "bp_fit_batch", "dantzig_path",
+    "PathResult", "LADResult", "BPResult", "StdStats", "__version__",
 ]

@@ -1,12 +1,14 @@
-"""Chainable builders for the Lasso and the Elastic Net (counterpart of
-``admm_tpu/api.py``; reference: NAMESPACE:9-13, R/30_admm_lasso.R)::
+"""Chainable builders mirroring the reference's five exports (counterpart
+of ``admm_tpu/api.py``; reference: NAMESPACE:9-13, R/30_admm_lasso.R)::
 
     fit = admm_lasso(x, y).penalty(nlambda=50).opts(eps_rel=1e-3).fit()
     fit.beta     # scipy.sparse CSC, (p+1) x nlambda, intercept in row 0
 
 Validation follows the JAX package's builders line by line.  ``device``
 says where numpy inputs go (default ``"cuda"``); a tensor input stays on
-its own device.
+its own device.  ``admm_lad`` and ``admm_bp`` also take ``dtype``: None
+means ``torch.float32`` (the JAX package reads its global x64 flag there,
+which torch does not have), ``torch.float64`` the reference's double.
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .models.bp import bp_fit
+from .models.dantzig import dantzig_path
+from .models.lad import lad_fit
 from .models.lasso import enet_path, lasso_path
 
 
@@ -78,6 +83,46 @@ class ADMMLassoFit:
 
     def plot(self, ax=None):
         """The solution-path plot is not ported yet."""
+        raise NotImplementedError(
+            "fit.plot() is not ported to admm_tpu_torch yet")
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class ADMMLADFit:
+    """LAD fit (reference: R/20_admm_lad.R): dense ``beta``, intercept
+    first, and ``niter``."""
+
+    def __init__(self, beta, niter):
+        self.beta = np.asarray(beta)
+        self.niter = int(niter)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(niter={self.niter!r})"
+
+    def plot(self, ax=None):
+        """The fitted-vs-observed plot is not ported yet."""
+        raise NotImplementedError(
+            "fit.plot() is not ported to admm_tpu_torch yet")
+
+
+class ADMMBPFit:
+    """Basis-Pursuit fit (reference: R/10_admm_bp.R): sparse (p, 1)
+    ``beta`` and ``niter``."""
+
+    def __init__(self, beta, niter):
+        from scipy import sparse
+
+        self.beta = sparse.csc_matrix(np.asarray(beta)[:, None])
+        self.niter = int(niter)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(niter={self.niter!r})"
+
+    def plot(self, ax=None):
+        """The coefficient stem plot is not ported yet."""
         raise NotImplementedError(
             "fit.plot() is not ported to admm_tpu_torch yet")
 
@@ -238,6 +283,161 @@ class ADMMEnet(ADMMLasso):
                                           **self._path_kwargs()))
 
 
+class ADMMDantzig(ADMMLasso):
+    """Dantzig-selector builder (reference: R/50_admm_dantzig.R:2, which
+    extends ADMM_Lasso unchanged)."""
+
+    def parallel(self, nthread: int = 2, **kw):
+        raise NotImplementedError(
+            "parallel computing is not supported for the Dantzig selector")
+
+    def opts(self, maxit: int = 10000, eps_abs: Optional[float] = None,
+             eps_rel: Optional[float] = None, rho: Optional[float] = None,
+             path_mode: str = "batch", trace=False, **kw):
+        if path_mode == "activeset":
+            # The gathered-column active set exists only for the wide
+            # Lasso/Enet x-update.
+            raise ValueError(
+                "path_mode='activeset' is not available for the "
+                "Dantzig selector; use 'batch' or 'scan'")
+        return super().opts(maxit, eps_abs, eps_rel, rho, path_mode, trace)
+
+    def fit(self) -> ADMMLassoFit:
+        return self._fit_result(dantzig_path(self.x, self.y,
+                                             **self._path_kwargs()))
+
+
+class ADMMBP:
+    """Basis-Pursuit builder (reference: R/10_admm_bp.R:2-41).
+
+    minimize ||beta||_1  s.t.  X beta = y;  requires p > n.
+    """
+
+    def __init__(self, x, y, device="cuda", dtype=None):
+        self.x, self.y = _check_xy(x, y)
+        n, p = self.x.shape
+        if p <= n:
+            raise ValueError("ncol(x) must be greater than nrow(x)")
+        self._init_opts(device, dtype)
+
+    def _init_opts(self, device, dtype):
+        self.device = device
+        self.dtype = dtype
+        self.nthread = 1
+        self.maxit = 10000
+        self._eps_abs = None
+        self._eps_rel = None
+        # None = the solver's own default (5.0; see models/lad.py);
+        # .opts(rho=1.0) restores the reference's literal default.
+        self.rho = None
+
+    def _eps_default(self) -> float:
+        """The reference's 1e-4 is a float64 tolerance (reference:
+        src/LAD.cpp:16, src/BP.cpp:20); float32, which ``dtype=None``
+        means, tightens it to 2e-5 (models/lad.py)."""
+        return 1e-4 if self.dtype == torch.float64 else 2e-5
+
+    # Resolved at access time, so the default follows ``dtype`` at fit.
+    @property
+    def eps_abs(self) -> float:
+        return self._eps_default() if self._eps_abs is None else self._eps_abs
+
+    @eps_abs.setter
+    def eps_abs(self, v):
+        self._eps_abs = None if v is None else float(v)
+
+    @property
+    def eps_rel(self) -> float:
+        return self._eps_default() if self._eps_rel is None else self._eps_rel
+
+    @eps_rel.setter
+    def eps_rel(self, v):
+        self._eps_rel = None if v is None else float(v)
+
+    def parallel(self, nthread: int = 2, **kw):
+        """(reference: R/10_admm_bp.R:66-75).  The consensus solver is
+        not ported yet: ``nthread > 1`` raises."""
+        nthread = max(int(nthread), 1)
+        if nthread > 1:
+            raise NotImplementedError(
+                "parallel(nthread > 1), the consensus solver, is not "
+                "ported to admm_tpu_torch yet")
+        self.nthread = nthread
+        return self
+
+    def opts(self, maxit: int = 10000, eps_abs: Optional[float] = None,
+             eps_rel: Optional[float] = None,
+             rho: Optional[float] = None, trace=False, **kw):
+        """(reference: R/10_admm_bp.R:80-97).  eps defaults follow the
+        precision and are resolved at fit time; ``rho=None`` keeps the
+        solver's default.  ``trace`` is not ported yet and raises."""
+        if maxit <= 0:
+            raise ValueError("maxit should be positive")
+        if eps_abs is not None and eps_abs < 0:
+            raise ValueError("eps_abs and eps_rel should be nonnegative")
+        if eps_rel is not None and eps_rel < 0:
+            raise ValueError("eps_abs and eps_rel should be nonnegative")
+        if rho is not None and rho <= 0:
+            raise ValueError("rho should be positive")
+        if trace is not False and trace is not True and int(trace) <= 0:
+            raise ValueError("trace must be a bool or a positive int")
+        if trace is not False:
+            raise NotImplementedError(
+                "trace is not ported to admm_tpu_torch yet")
+        self.maxit = int(maxit)
+        self.eps_abs = eps_abs
+        self.eps_rel = eps_rel
+        self.rho = None if rho is None else float(rho)
+        return self
+
+    def _fit_kwargs(self):
+        return dict(maxit=self.maxit, eps_abs=self.eps_abs,
+                    eps_rel=self.eps_rel, rho=self.rho, dtype=self.dtype,
+                    device=self.device)
+
+    def fit(self) -> ADMMBPFit:
+        """(reference: R/10_admm_bp.R:100-120)"""
+        res = bp_fit(self.x, self.y, **self._fit_kwargs())
+        return ADMMBPFit(_to_numpy(res.coef), res.niter)
+
+    def __repr__(self):
+        n, p = self.x.shape
+        return (f"{type(self).__name__}(x=<{n} x {p}>, maxit={self.maxit}, "
+                f"eps_abs={self.eps_abs}, eps_rel={self.eps_rel}, "
+                f"rho={self.rho})")
+
+
+class ADMMLAD(ADMMBP):
+    """LAD (median regression) builder (reference: R/20_admm_lad.R:2-31).
+
+    minimize ||y - X beta||_1;  requires n > p.
+    """
+
+    def __init__(self, x, y, intercept: bool = True, device="cuda",
+                 dtype=None):
+        self.x, self.y = _check_xy(x, y)
+        n, p = self.x.shape
+        if n <= p:
+            raise ValueError("nrow(x) must be greater than ncol(x)")
+        self.intercept = bool(intercept)
+        self._init_opts(device, dtype)
+
+    def parallel(self, nthread: int = 2, **kw):
+        raise NotImplementedError(
+            "parallel computing is not supported for LAD (the reference "
+            "accepts nthread but silently runs serial; failing loudly "
+            "is kinder)")
+
+    def fit(self) -> ADMMLADFit:
+        res = lad_fit(self.x, self.y, intercept=self.intercept,
+                      **self._fit_kwargs())
+        beta = np.concatenate([np.atleast_1d(_to_numpy(res.beta0)),
+                               _to_numpy(res.coef)])
+        return ADMMLADFit(beta, res.niter)
+
+
+# -- the reference's five exported constructors --------------------------
+
 def admm_lasso(x, y, intercept: bool = True, standardize: bool = True,
                device="cuda") -> ADMMLasso:
     """Fit a Lasso model by ADMM (reference: R/30_admm_lasso.R:377-380)."""
@@ -248,3 +448,20 @@ def admm_enet(x, y, intercept: bool = True, standardize: bool = True,
               device="cuda") -> ADMMEnet:
     """Fit an Elastic-Net model by ADMM (reference: R/40_admm_enet.R)."""
     return ADMMEnet(x, y, intercept, standardize, device)
+
+
+def admm_lad(x, y, intercept: bool = True, device="cuda",
+             dtype=None) -> ADMMLAD:
+    """Fit a LAD (median) regression by ADMM (reference: R/20_admm_lad.R)."""
+    return ADMMLAD(x, y, intercept, device, dtype)
+
+
+def admm_bp(x, y, device="cuda", dtype=None) -> ADMMBP:
+    """Solve Basis Pursuit by ADMM (reference: R/10_admm_bp.R)."""
+    return ADMMBP(x, y, device, dtype)
+
+
+def admm_dantzig(x, y, intercept: bool = True, standardize: bool = True,
+                 device="cuda") -> ADMMDantzig:
+    """Fit a Dantzig selector by ADMM (reference: R/50_admm_dantzig.R)."""
+    return ADMMDantzig(x, y, intercept, standardize, device)

@@ -3,7 +3,8 @@ the port.
 
 The system has no weights: what crosses between ``admm_tpu`` and
 ``admm_tpu_torch`` is solver state (``ADMMState``), standardization
-statistics (``StdStats``) and path results (``PathResult``), plus plain
+statistics (``StdStats``) and results (``PathResult``, ``LADResult``,
+``BPResult``), plus plain
 arrays such as a ridge inverse, X'y, rho, sprad or a lambda grid.  The
 two packages' types are ``NamedTuple``s with the same names and fields;
 numpy arrays are the medium.  This module never imports JAX: the
@@ -18,9 +19,12 @@ import torch
 
 from .core.engine import ADMMState
 from .data.standardize import StdStats
+from .models.bp import BPResult
+from .models.lad import LADResult
 from .models.lasso import PathResult
 
-_PORT_TYPES = {cls.__name__: cls for cls in (ADMMState, StdStats, PathResult)}
+_PORT_TYPES = {cls.__name__: cls for cls in (ADMMState, StdStats, PathResult,
+                                             LADResult, BPResult)}
 
 
 def to_torch(a, *, device=None, dtype: Optional[torch.dtype] = None):
@@ -43,7 +47,7 @@ def to_numpy(t) -> Any:
 
 
 def from_reference(obj, *, device=None, dtype: Optional[torch.dtype] = None):
-    """A JAX-package ``ADMMState``, ``StdStats`` or ``PathResult`` as the
+    """A JAX-package ``ADMMState``, ``StdStats`` or result tuple as the
     port's type of the same name.  ``dtype`` casts floating fields only."""
     name = type(obj).__name__
     if name not in _PORT_TYPES:
@@ -61,7 +65,7 @@ def from_reference(obj, *, device=None, dtype: Optional[torch.dtype] = None):
 
 
 def to_reference(obj, cls):
-    """A port ``ADMMState``, ``StdStats`` or ``PathResult`` as ``cls``,
+    """A port ``ADMMState``, ``StdStats`` or result tuple as ``cls``,
     the JAX package's type of the same name, with numpy fields (which the
     JAX functions accept as arrays)."""
     if type(obj).__name__ != cls.__name__ or tuple(obj._fields) != tuple(

@@ -1,19 +1,32 @@
-"""Hand-written CUDA kernels of the lambda path, with their plain forms.
+"""Hand-written CUDA kernels of the solvers, with their plain forms.
 
-Counterpart of ``admm_tpu/ops``: each Pallas TPU kernel on the path has a
-CUDA C++ kernel for Hopper (``csrc/*.cu``, built by :mod:`._build` at first
-use) and a wrapper that launches it for CUDA tensors and runs the plain
-PyTorch form for CPU tensors.  Importing this package builds nothing.
+Counterpart of ``admm_tpu/ops``: each Pallas TPU kernel that is ported has
+a CUDA C++ kernel for Hopper (``csrc/*.cu``, built by :mod:`._build` at
+first use) and a wrapper that launches it for CUDA tensors and runs the
+plain PyTorch form for CPU tensors.  Importing this package builds nothing.
+
+The five kernels, by the name their launch count goes under:
+
+* ``tall_path_batch`` (:mod:`.tall_path`): tall Lasso/Enet path, all
+  lambdas at once;
+* ``tall_path_scan`` (:mod:`.tall_path`): the same, one lane warm-started
+  over lambda;
+* ``wide_path_batch`` (:mod:`.wide_path`): wide Lasso/Enet path, all
+  lambdas at once, per-lane adaptive rho;
+* ``lad_solve`` (:mod:`.lad`): one LAD solve against the hat matrix;
+* ``bp_batch_solve`` (:mod:`.bp`): m Basis-Pursuit signals against one A.
 """
 from __future__ import annotations
 
-from . import tall_path, wide_path
+from . import bp, lad, tall_path, wide_path
 
 #: (module, counter name) of every kernel's launch count.
 _COUNTERS = {
     "tall_path_batch": (tall_path, "batch_launches"),
     "tall_path_scan": (tall_path, "scan_launches"),
     "wide_path_batch": (wide_path, "batch_launches"),
+    "lad_solve": (lad, "solve_launches"),
+    "bp_batch_solve": (bp, "batch_launches"),
 }
 
 
@@ -28,4 +41,5 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-__all__ = ["launch_counts", "reset_launch_counts", "tall_path", "wide_path"]
+__all__ = ["bp", "lad", "launch_counts", "reset_launch_counts", "tall_path",
+           "wide_path"]

@@ -2,7 +2,8 @@
 
 At first use, ``nvcc`` compiles every ``.cu`` file under ``csrc/`` for
 Hopper (``sm_90a``) into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  A content hash of the sources names the
+which is loaded with ``ctypes`` (``--threads 0``: the sources compile
+side by side).  A content hash of the sources names the
 library, so an edited source is rebuilt and an unchanged one is reused.
 No PyTorch headers are involved, which keeps the build to seconds.
 
@@ -31,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", "--threads", "0"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -54,6 +55,11 @@ _ENTRIES = {
                             _I, _F, _P],
     "admm_wide_path_batch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                              _F, _F, _F, _I, _I, _P],
+    "admm_lad_max_grid": [],
+    "admm_lad_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
+                       _I, _F, _P],
+    "admm_bp_batch_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
+                            _F, _P],
     "admm_cuda_error_string": [_I],
 }
 

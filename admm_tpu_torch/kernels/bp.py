@@ -1,0 +1,123 @@
+"""Batched Basis-Pursuit solve kernel: wrapper and plain form.
+
+``bp_batch_solve`` replaces ``admm_tpu/ops/bp_kernel.py::_bp_batch_kernel``
+(``bp_batch_solve_pallas``): m signals against one A, each lane a whole
+FADMM solve with rho fixed, frozen once converged.  On a CUDA tensor it
+launches the hand-written kernel in ``csrc/bp.cu``; on a CPU tensor it
+runs :func:`bp_batch_solve_reference`, a direct translation of the fused
+loop.  Exact shapes: A (n, p), Winv = (AA')^-1 (n, n), AAAB (m, p) with
+rows ``A' Winv b_i`` -> ``(z (m, p), niter (m,) int32)``.
+
+One block runs one lane, so a single signal (m = 1) is simply a grid of
+one; the TPU kernel's ``m >= 2`` rule is not carried over.  The kernel
+holds 8p + 4n floats of lane state in shared memory; the caller checks
+:func:`fits` before it calls.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check, load_library
+from ._common import (check_cuda_input, fadmm_momentum, matmul64, rnorm,
+                      soft_threshold, sqsum)
+
+#: Shared memory one block may hold on sm_90, less 2 KB of scratch.
+_SMEM_FLOATS = (232448 - 2048) // 4
+
+#: Launch count: the wrapper adds one where it launches the kernel.
+batch_launches = 0
+
+
+def fits(n: int, p: int) -> bool:
+    """Whether the BP kernel takes an (n, p) problem: the three products'
+    left factors as float64 (v: 2p floats; t, u: 4n floats) and z, y,
+    adj_z, adj_y, z_new, y_new as float32 (6p floats) must fit one block's
+    shared memory."""
+    return n >= 1 and p >= 1 and 8 * p + 4 * n <= _SMEM_FLOATS
+
+
+def bp_batch_solve_reference(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
+                             restart_tol: float = 0.999):
+    """Plain PyTorch form of the kernel: m lanes, frozen once converged,
+    one host read per iteration for the all-done exit.  Each of the three
+    products and every squared norm accumulates in float64 and rounds
+    once, as in the kernel."""
+    p = A.shape[1]
+    m = AAAB.shape[0]
+    dtype, dev = A.dtype, A.device
+    sqrt_p = torch.sqrt(torch.tensor(float(p), dtype=dtype, device=dev))
+    rho = torch.as_tensor(rho, dtype=dtype, device=dev)
+    pen = 1.0 / rho
+    A64 = A.to(torch.float64)
+    Winv64 = Winv.to(torch.float64)
+
+    x = torch.zeros((m, p), dtype=dtype, device=dev)
+    z, y, adj_z, adj_y = (torch.zeros_like(x) for _ in range(4))
+    adj_a = torch.ones((m, 1), dtype=dtype, device=dev)
+    adj_c = torch.full((m, 1), 9999.0, dtype=dtype, device=dev)
+    done = torch.zeros((m, 1), dtype=torch.bool, device=dev)
+    niter = torch.zeros((m, 1), dtype=torch.int32, device=dev)
+    for _ in range(int(maxit)):
+        if bool(torch.all(done)):
+            break
+        eps_pri = torch.maximum(rnorm(x), rnorm(z)) * eps_rel + sqrt_p * eps_abs
+        eps_dua = rnorm(y) * eps_rel + sqrt_p * eps_abs
+        v = adj_z - adj_y / rho
+        t = matmul64(v, A64.mT)
+        u = matmul64(t, Winv64)
+        x_new = v + AAAB - matmul64(u, A64)
+        z_new = soft_threshold(x_new + adj_y / rho, pen)
+        r_dua = rho * rnorm(z_new - z)
+        r = x_new - z_new
+        r_pri = rnorm(r)
+        y_new = adj_y + rho * r
+        now_done = (r_pri < eps_pri) & (r_dua < eps_dua)
+        adj_z_new, adj_y_new, adj_a_new, adj_c_new = fadmm_momentum(
+            now_done, rho, r_pri, sqsum(z_new - adj_z), z_new, y_new, z, y,
+            adj_z, adj_y, adj_a, adj_c, restart_tol)
+        pick = lambda new, old: torch.where(done, old, new)
+        x, z, y = pick(x_new, x), pick(z_new, z), pick(y_new, y)
+        adj_z, adj_y = pick(adj_z_new, adj_z), pick(adj_y_new, adj_y)
+        adj_a, adj_c = pick(adj_a_new, adj_a), pick(adj_c_new, adj_c)
+        niter = niter + (~done).to(torch.int32)
+        done = done | now_done
+    return z, niter.reshape(m)
+
+
+def bp_batch_solve(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
+                   restart_tol: float = 0.999):
+    """m Basis-Pursuit solves against one A (``bp_batch_solve_pallas``).
+
+    CUDA tensors launch ``bp_batch_kernel``; CPU tensors run
+    :func:`bp_batch_solve_reference`.  Returns ``(z (m, p), niter (m,))``.
+    """
+    global batch_launches
+    if A.device.type == "cpu":
+        return bp_batch_solve_reference(A, Winv, AAAB, rho, eps_abs, eps_rel,
+                                        maxit, restart_tol=restart_tol)
+    n, p = A.shape
+    m = AAAB.shape[0]
+    dev = A.device
+    check_cuda_input("A", A, (n, p), dev)
+    check_cuda_input("Winv", Winv, (n, n), dev)
+    check_cuda_input("AAAB", AAAB, (m, p), dev)
+    if not fits(n, p):
+        raise ValueError(f"BP kernel takes 8p + 4n <= {_SMEM_FLOATS}, "
+                         f"got n={n}, p={p}")
+    if m < 1:
+        raise ValueError("AAAB must hold at least one signal")
+    lib = load_library()
+    z = torch.empty((m, p), dtype=torch.float32, device=dev)
+    niter = torch.empty((m,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.admm_bp_batch_solve(
+            A.data_ptr(), Winv.data_ptr(), AAAB.data_ptr(), z.data_ptr(),
+            niter.data_ptr(), n, p, m, float(rho), float(eps_abs),
+            float(eps_rel), int(maxit), float(restart_tol), stream)
+    check(lib, err, "admm_bp_batch_solve")
+    batch_launches += 1
+    return z, niter
+
+
+__all__ = ["bp_batch_solve", "bp_batch_solve_reference", "fits"]

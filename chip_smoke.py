@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's Lasso/Elastic-Net path once on one GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU: the
+Lasso/Elastic-Net lambda path, LAD, Basis Pursuit and the Dantzig selector.
 
     python3 chip_smoke.py
 
@@ -10,13 +11,20 @@ Phases, in order:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions
    and the TF32 settings, which must be off;
 2. the kernel build, timed;
-3. each CUDA kernel against its plain PyTorch version on the same inputs
-   at the main path's shapes (the flagship 10000 x 1000 problem with 100
-   lambdas, and the wide 1000 x 2000 one), at the kernel tests' bars;
-4. the main path through the public entry points on the card, with every
-   launch count set to 0 before and read after, each call's coefficients
-   held against the port's float64 engine run on the card;
-5. kernel and plain times: median of 5 CUDA-event timings after a warm-up.
+3. each of the five CUDA kernels against its plain PyTorch version on the
+   same inputs at the main path's shapes (the flagship 10000 x 1000 Lasso
+   problem with 100 lambdas, the wide 1000 x 2000 one, LAD at 1000 x 500
+   and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one), at
+   the kernel tests' bars;
+4. the main paths through the public entry points on the card, with every
+   launch count set to 0 before and read after, each call's result held
+   against the port's float64 engine run on the card;
+5. kernel and plain times, and each entry point end to end: median of 5
+   (3 for the larger solves) CUDA-event timings after a warm-up, each
+   kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
+   operations over 67 TFLOP/s float32, for the iterations this run's data
+   needed); then the stages of one LAD fit and one batched BP solve on the
+   host clock.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
 last line.  Exits nonzero, printing no result, without a CUDA device,
@@ -38,6 +46,16 @@ EPS = 1e-5
 MAXIT = 10000
 COEF_BAR = 1e-5       # kernel vs plain coefficients (tests/test_torch_kernels.py)
 PATH_BAR = 5e-4       # main path (float32 kernels) vs float64 engine
+# LAD and BP: the precision-aware defaults of the port (models/lad.py).
+RHO_L1, EPS_L1 = 5.0, 2e-5
+LAD_COEF_BAR, LAD_OBJ_BAR = 5e-3, 1.001   # tests/test_pallas_kernels.py
+BP_Z_BAR = 1e-4                           # kernel vs plain, same file
+BP_F64_BAR = 1e-3                         # main path vs float64 engine
+BP_RECOVERY_BAR = 2.11e-3                 # the reference README's published error
+DANTZIG_SHAPE = (2000, 200, 20)           # n, p, nlambda
+# The card's published peaks (H100 SXM data sheet), for the bounds.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 
 def make_problem(n=10000, p=1000, m=100, seed=123):
@@ -49,6 +67,32 @@ def make_problem(n=10000, p=1000, m=100, seed=123):
     X = rng.normal(size=(n, p))
     y = 5.0 + X @ b + rng.normal(size=n)
     return X.astype(np.float32), y.astype(np.float32)
+
+
+def lad_problem(n, p, seed=123):
+    """The reference README's LAD generator
+    (benchmarks/run_baselines.py::lad_problem): b = runif(p),
+    x = rnorm(sd=2), y = x b + rnorm, fitted with intercept=False."""
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(size=p)
+    X = rng.normal(scale=2.0, size=(n, p))
+    y = X @ b + rng.normal(size=n)
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def bp_problem(n, p, k, m=1, seed=123):
+    """The reference README's BP generator
+    (benchmarks/run_baselines.py::bp_problem): a k-sparse signal, exact
+    measurements.  Signal 0 and A are that problem's; signals 1..m-1 are
+    drawn the same way from the same generator afterwards."""
+    rng = np.random.default_rng(seed)
+    X0 = np.zeros((m, p))
+    X0[0, rng.choice(p, k, replace=False)] = rng.normal(size=k)
+    A = (rng.normal(size=(n, p)) / np.sqrt(n)).astype(np.float32)
+    for i in range(1, m):
+        X0[i, rng.choice(p, k, replace=False)] = rng.normal(size=k)
+    B = (X0 @ A.astype(np.float64).T).astype(np.float32)
+    return A, B, X0
 
 
 def cuda_median_ms(torch, fn, reps=5):
@@ -65,6 +109,29 @@ def cuda_median_ms(torch, fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_median_ms(torch, fn, reps=5):
+    """Median host-clock time of ``fn`` run to ``torch.cuda.synchronize()``,
+    after one warm-up; returns ``(ms, fn's last result)``."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or this run's operations at
+    the float32 rate, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 class Smoke:
@@ -91,21 +158,25 @@ def main() -> int:
 
     import admm_tpu_torch
     from admm_tpu_torch import kernels
-    from admm_tpu_torch.data.standardize import standardize
-    from admm_tpu_torch.kernels import _build, tall_path, wide_path
+    from admm_tpu_torch.data.standardize import recover, standardize
+    from admm_tpu_torch.kernels import _build, bp, lad, tall_path, wide_path
+    from admm_tpu_torch.models.bp import _bp_fit, _bp_fit_engine, _bp_setup
+    from admm_tpu_torch.models.lad import _hat_matrix, _lad_setup
     from admm_tpu_torch.models.lasso import (_auto_lambdas, _tall_setup,
                                              _wide_setup)
 
     smoke = Smoke()
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
 
     # 1. The card and the settings.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -128,6 +199,11 @@ def main() -> int:
     # 3. Kernel vs plain at the main path's shapes.
     X, y = make_problem()
     Xw, yw = make_problem(1000, 2000, 100)
+    Xl, yl = lad_problem(1000, 500)
+    Xl5, yl5 = lad_problem(5000, 1000)
+    A, B, X0 = bp_problem(1000, 2000, 100, m=100)
+    nd, pd, kd = DANTZIG_SHAPE
+    Xd, yd = make_problem(nd, pd, 20)
     f32 = dict(dtype=torch.float32, device=dev)
 
     def tall_inputs():
@@ -149,29 +225,103 @@ def main() -> int:
         return (Xs.contiguous(), ys.contiguous(), ilams.contiguous(),
                 rho.contiguous(), sprad, lambda0)
 
+    def lad_inputs(Xn, yn):
+        """What ``lad_fit(intercept=False)`` hands the kernel, plus the
+        pieces of the recovery solve."""
+        Xa, ys, _, Ginv, ynorm = _lad_setup(torch.as_tensor(Xn, **f32),
+                                            torch.as_tensor(yn, **f32), False)
+        args = (_hat_matrix(Xa, Ginv), ys.contiguous(), RHO_L1, EPS_L1,
+                EPS_L1, float(ynorm), MAXIT)
+        return args, (Xa, ys, Ginv)
+
+    def bp_inputs():
+        At, Bt = torch.as_tensor(A, **f32), torch.as_tensor(B, **f32)
+        Winv = _bp_setup(At)
+        AAAB = (Bt @ (Winv @ At)).contiguous()
+        return At.contiguous(), Winv.contiguous(), AAAB
+
     Minv, Xty, ilams, rho = tall_inputs()
     Xs_w, ys_w, ilams_w, rhos_w, sprad_w, lambda0_w = wide_inputs()
+    lad_args, lad_rec = lad_inputs(Xl, yl)
+    lad5_args, lad5_rec = lad_inputs(Xl5, yl5)
+    At, Winv, AAAB = bp_inputs()
     torch.cuda.synchronize()
     tall_args = (Minv, Xty, ilams, rho, EPS, EPS, 1.0, MAXIT)
     wide_args = (Xs_w, ys_w, ilams_w, rhos_w, sprad_w, lambda0_w, EPS, EPS,
                  1.0, MAXIT)
+    bp_args = (At, Winv, AAAB, RHO_L1, EPS_L1, EPS_L1, MAXIT)
+    bp1_args = (At, Winv, AAAB[:1].contiguous(), RHO_L1, EPS_L1, EPS_L1,
+                MAXIT)
+    P, (Nw, Pw), K = Minv.shape[0], Xs_w.shape, ilams.shape[0]
+    Nl, (Nb, Pb), Mb = lad_args[0].shape[0], At.shape, AAAB.shape[0]
+    # name: (kernel, plain, args, source, replaces,
+    #        bytes in + out, operations per lane-iteration)
     cases = {
         "tall_path_batch": (tall_path.tall_path_batch,
                             tall_path.tall_path_batch_reference, tall_args,
                             "admm_tpu_torch/csrc/tall_path.cu",
-                            "admm_tpu/ops/tall_path.py:77"),
+                            "admm_tpu/ops/tall_path.py:77",
+                            4 * (P * P + P + K + K * P + K), 2 * P * P),
         "tall_path_scan": (tall_path.tall_path_scan,
                            tall_path.tall_path_scan_reference, tall_args,
                            "admm_tpu_torch/csrc/tall_path.cu",
-                           "admm_tpu/ops/tall_path.py:178"),
+                           "admm_tpu/ops/tall_path.py:178",
+                           4 * (P * P + P + K + K * P + K), 2 * P * P),
         "wide_path_batch": (wide_path.wide_path_batch,
                             wide_path.wide_path_batch_reference, wide_args,
                             "admm_tpu_torch/csrc/wide_path.cu",
-                            "admm_tpu/ops/wide_path.py:45"),
+                            "admm_tpu/ops/wide_path.py:45",
+                            4 * (Nw * Pw + Nw + 2 * K + K * Pw + K),
+                            4 * Nw * Pw),
+        "lad_solve": (lad.lad_solve, lad.lad_solve_reference, lad_args,
+                      "admm_tpu_torch/csrc/lad.cu",
+                      "admm_tpu/ops/lad_kernel.py:42",
+                      4 * (Nl * Nl + Nl + 2 * Nl + 1), 2 * Nl * Nl),
+        "bp_batch_solve": (bp.bp_batch_solve, bp.bp_batch_solve_reference,
+                           bp_args, "admm_tpu_torch/csrc/bp.cu",
+                           "admm_tpu/ops/bp_kernel.py:62",
+                           4 * (Nb * Pb + Nb * Nb + 2 * Mb * Pb + Mb),
+                           4 * Nb * Pb + 2 * Nb * Nb),
     }
     record = {}
-    for name, (kernel, plain, args, source, replaces) in cases.items():
+
+    def lad_compare(label, args, rec):
+        """LAD kernel against plain: the invariant is the recovered
+        coefficient vector and its L1 objective (the terminal duals are
+        path-dependent near the L1 kinks); the raw state's gap and niter
+        are printed beside it."""
+        Xa, ys, Ginv = rec
+        ay, az, nk = lad.lad_solve(*args)
+        torch.cuda.synchronize()
+        ay_p, az_p, np_ = lad.lad_solve_reference(*args)
+        coef_of = lambda a_y, a_z: Ginv @ (Xa.mT @ (ys - a_y / RHO_L1 + a_z))
+        obj_of = lambda c: float(torch.sum(torch.abs(
+            ys.double() - Xa.double() @ c.double())))
+        c, c_p = coef_of(ay, az), coef_of(ay_p, az_p)
+        err = float(torch.max(torch.abs(c - c_p)))
+        raw = max(float((ay - ay_p).abs().max()), float((az - az_p).abs().max()))
+        nk, np_ = int(nk), int(np_)
+        print(f"  {label}: max |coef gap| {err:.3e} (standardized scale), "
+              f"max |adj gap| {raw:.3e}, L1 objective kernel {obj_of(c):.6f} "
+              f"plain {obj_of(c_p):.6f}, niter kernel {nk} plain {np_}")
+        smoke.check(bool(torch.isfinite(c).all()) and 0 < nk < MAXIT,
+                    f"{label}: finite, converged before maxit")
+        smoke.check(err <= LAD_COEF_BAR, f"{label}: coef gap <= {LAD_COEF_BAR}")
+        smoke.check(obj_of(c) <= obj_of(c_p) * LAD_OBJ_BAR,
+                    f"{label}: objective <= {LAD_OBJ_BAR} x plain's")
+        print(f"  {label}: the path kernels' bars (coef gap <= {COEF_BAR}, niter within "
+              f"1): {'met' if err <= COEF_BAR and abs(nk - np_) <= 1 else 'not met'}")
+        return err, nk, np_
+
+    for name, (kernel, plain, args, source, replaces, _, _) in cases.items():
         print(f"phase: {name} kernel vs plain", flush=True)
+        if name == "lad_solve":
+            err, nk, np_ = lad_compare("lad_solve 1000 x 500", args, lad_rec)
+            lad_compare("lad_solve 5000 x 1000", lad5_args, lad5_rec)
+            record[name] = dict(name=name, route="cuda", source=source,
+                                replaces=replaces, max_abs_err=err,
+                                niter_total=nk, niter_total_plain=np_)
+            continue
         zk, nk = kernel(*args)
         torch.cuda.synchronize()
         zp, np_ = plain(*args)
@@ -186,12 +336,26 @@ def main() -> int:
             print("  lanes more than 1 apart (lane: kernel, plain): " + ", ".join(
                 f"{i}: {nk[i]}, {np_[i]}" for i in far[:20]))
         smoke.check(bool(torch.isfinite(zk).all()), f"{name}: finite")
-        smoke.check(err <= COEF_BAR, f"{name}: coef gap <= {COEF_BAR}")
+        if name == "bp_batch_solve":
+            smoke.check(err <= BP_Z_BAR, f"{name}: z gap <= {BP_Z_BAR}")
+            smoke.check(all(abs(int(a) - int(b)) <= max(3, int(0.05 * int(b)))
+                            for a, b in zip(nk, np_)),
+                        f"{name}: niter within max(3, 5%) per lane")
+            smoke.check(int(nk.max()) < MAXIT, f"{name}: converged before maxit")
+            print(f"  {name}: the path kernels' bars (gap <= {COEF_BAR}, niter within 1): "
+                  f"{'met' if err <= COEF_BAR and np.abs(nk - np_).max() <= 1 else 'not met'}")
+            z1, n1 = kernel(*bp1_args)
+            torch.cuda.synchronize()
+            smoke.check(torch.equal(z1[0], zk[0]) and int(n1[0]) == int(nk[0]),
+                        f"{name}: one lane alone (m = 1) equals lane 0 of the "
+                        "batch, to the bit")
+        else:
+            smoke.check(err <= COEF_BAR, f"{name}: coef gap <= {COEF_BAR}")
         if name == "tall_path_scan":
             tot_k, tot_p = int(nk.sum()), int(np_.sum())
             smoke.check(abs(tot_k - tot_p) <= max(3, int(0.1 * tot_p)),
                         f"{name}: niter totals within max(3, 10%)")
-        else:
+        elif name != "bp_batch_solve":
             smoke.check(int(np.abs(nk - np_).max()) <= 1,
                         f"{name}: niter within 1 per lane")
         if name == "wide_path_batch":
@@ -202,78 +366,234 @@ def main() -> int:
                             niter_total=int(nk.sum()),
                             niter_total_plain=int(np_.sum()))
 
-    # 4. The main path through the public entry points.
+    # 4. The main paths through the public entry points.
     print("phase: main path", flush=True)
+    t = admm_tpu_torch
+    f64 = dict(dtype=torch.float64)
+    l1_f64 = dict(dtype=torch.float64, eps_abs=EPS_L1, eps_rel=EPS_L1)
+    # (label, kernel that must launch or None, call, float64 engine reference)
     calls = [
         ("admm_lasso(X, y).fit()  [tall batch]", "tall_path_batch",
-         lambda: admm_tpu_torch.admm_lasso(X, y).fit(),
-         dict(path_mode="batch")),
+         lambda: t.admm_lasso(X, y).fit(),
+         lambda: t.lasso_path(X, y, path_mode="batch", **f64)),
         ("lasso_path(X, y)  [tall scan]", "tall_path_scan",
-         lambda: admm_tpu_torch.lasso_path(X, y), dict(path_mode="scan")),
+         lambda: t.lasso_path(X, y),
+         lambda: t.lasso_path(X, y, path_mode="scan", **f64)),
         ("enet_path(X, y, alpha=0.6)  [tall scan]", "tall_path_scan",
-         lambda: admm_tpu_torch.enet_path(X, y, alpha=0.6),
-         dict(path_mode="scan", alpha=0.6, _enet_scale=True)),
+         lambda: t.enet_path(X, y, alpha=0.6),
+         lambda: t.enet_path(X, y, alpha=0.6, path_mode="scan", **f64)),
         ("admm_lasso(Xw, yw).fit()  [wide batch]", "wide_path_batch",
-         lambda: admm_tpu_torch.admm_lasso(Xw, yw).fit(),
-         dict(path_mode="batch")),
+         lambda: t.admm_lasso(Xw, yw).fit(),
+         lambda: t.lasso_path(Xw, yw, path_mode="batch", **f64)),
+        ("admm_lad(Xl, yl, intercept=False).fit()  [1000 x 500]",
+         "lad_solve", lambda: t.admm_lad(Xl, yl, intercept=False).fit(),
+         lambda: t.lad_fit(Xl, yl, intercept=False, **l1_f64)),
+        ("admm_lad(Xl5, yl5, intercept=False).fit()  [5000 x 1000]",
+         "lad_solve", lambda: t.admm_lad(Xl5, yl5, intercept=False).fit(),
+         lambda: t.lad_fit(Xl5, yl5, intercept=False, **l1_f64)),
+        ("bp_fit_batch(A, B)  [1000 x 2000 x 100]", "bp_batch_solve",
+         lambda: t.bp_fit_batch(A, B),
+         lambda: t.bp_fit_batch(A, B, **l1_f64)),
+        ("admm_bp(A, b).fit()  [1000 x 2000, m = 1]", "bp_batch_solve",
+         lambda: t.admm_bp(A, B[0]).fit(),
+         lambda: t.bp_fit(A, B[0], **l1_f64)),
+        (f"admm_dantzig(Xd, yd).penalty(nlambda={kd}).fit()  "
+         f"[{nd} x {pd}, batch, engine]", None,
+         lambda: t.admm_dantzig(Xd, yd).penalty(nlambda=kd).opts(
+             path_mode="batch").fit(),
+         lambda: t.dantzig_path(Xd, yd, nlambda=kd, path_mode="batch", **f64)),
     ]
-    kernels.reset_launch_counts()
+    smoke.check(lad.fits(Xl5.shape[0]),
+                "LAD 5000 x 1000 takes the kernel route (fits(5000))")
+    # Every path is driven with the counts at 0 just before it and read
+    # just after; a kernel's `launches` is its sum over the paths.
     outputs = []
+    counts = dict.fromkeys(cases, 0)
     t_main = time.perf_counter()
     for label, kname, call, _ in calls:
-        before = kernels.launch_counts()[kname]
+        kernels.reset_launch_counts()
         out = call()
         torch.cuda.synchronize()
-        after = kernels.launch_counts()[kname]
-        smoke.check(after > before, f"{label}: launched {kname}")
+        after = kernels.launch_counts()
+        if kname is None:
+            smoke.check(not any(after.values()),
+                        f"{label}: no kernel on this path")
+        else:
+            smoke.check(after[kname] > 0, f"{label}: launched {kname}")
+        for name, launched in after.items():
+            counts[name] += launched
         outputs.append(out)
     main_s = time.perf_counter() - t_main
-    counts = kernels.launch_counts()
-    print(f"  launch counts after the main path: {counts} "
+    print(f"  launch counts over the main paths: {counts} "
           f"({main_s:.2f} s on the host clock, first calls included)")
     for name in cases:
         smoke.check(counts[name] > 0, f"{name} launched on the main path")
         record[name]["launches"] = counts[name]
 
-    for (label, _, _, ref_kw), out in zip(calls, outputs):
-        data = (Xw, yw) if "Xw" in label else (X, y)
-        ref = admm_tpu_torch.lasso_path(*data, dtype=torch.float64, **ref_kw)
-        if isinstance(out, admm_tpu_torch.ADMMLassoFit):
+    def to_np(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+
+    for (label, _, _, ref_call), out in zip(calls, outputs):
+        ref = ref_call()
+        if isinstance(out, t.ADMMLADFit):
+            Xn, yn = (Xl5, yl5) if "Xl5" in label else (Xl, yl)
+            coef, coef_ref = out.beta[1:], to_np(ref.coef)
+            gap = float(np.abs(coef - coef_ref).max())
+            obj = lambda c: float(np.abs(
+                yn.astype(np.float64) - Xn.astype(np.float64) @ c).sum())
+            print(f"  {label}: max |coef - f64 engine| {gap:.3e}, L1 objective "
+                  f"{obj(coef):.4f} vs f64 {obj(coef_ref):.4f}, niter "
+                  f"{out.niter} (f64 engine {int(ref.niter)})")
+            smoke.check(bool(np.isfinite(out.beta).all())
+                        and out.beta.shape == (Xn.shape[1] + 1,)
+                        and out.beta[0] == 0.0, f"{label}: finite, shape")
+            smoke.check(gap <= LAD_COEF_BAR,
+                        f"{label}: within {LAD_COEF_BAR} of float64")
+            smoke.check(obj(coef) <= obj(coef_ref) * LAD_OBJ_BAR,
+                        f"{label}: L1 objective within 0.1% of float64's")
+            continue
+        if isinstance(out, (t.ADMMBPFit, t.BPResult)):
+            if isinstance(out, t.ADMMBPFit):
+                coef, truth = out.beta.toarray()[:, 0], X0[0]
+                niter = np.array([out.niter])
+            else:
+                coef, truth, niter = to_np(out.coef), X0, to_np(out.niter)
+            gap = float(np.abs(coef - to_np(ref.coef)).max())
+            rec_err = float(np.abs(coef - truth).max())
+            print(f"  {label}: max |coef - f64 engine| {gap:.3e}, max "
+                  f"|coef - true signal| {rec_err:.3e}, niter total "
+                  f"{int(niter.sum())} max {int(niter.max())} (f64 engine "
+                  f"total {int(to_np(ref.niter).sum())})")
+            smoke.check(bool(np.isfinite(coef).all())
+                        and coef.shape == truth.shape, f"{label}: finite, shape")
+            smoke.check(gap <= BP_F64_BAR,
+                        f"{label}: within {BP_F64_BAR} of float64")
+            smoke.check(rec_err <= BP_RECOVERY_BAR,
+                        f"{label}: recovery error <= {BP_RECOVERY_BAR}")
+            continue
+        if isinstance(out, t.ADMMLassoFit):
             dense = out.beta.toarray()
             beta0, coef, niter = dense[0], dense[1:].T, out.niter
         else:
-            beta0 = out.beta0.cpu().numpy()
-            coef, niter = out.coef.cpu().numpy(), out.niter.cpu().numpy()
-        gap = float(np.abs(coef - ref.coef.cpu().numpy()).max())
-        gap0 = float(np.abs(beta0 - ref.beta0.cpu().numpy()).max())
+            beta0, coef, niter = (to_np(out.beta0), to_np(out.coef),
+                                  to_np(out.niter))
+        nlam = kd if "dantzig" in label else 100
+        gap = float(np.abs(coef - to_np(ref.coef)).max())
+        gap0 = float(np.abs(beta0 - to_np(ref.beta0)).max())
         finite = bool(np.isfinite(coef).all() and np.isfinite(beta0).all())
         print(f"  {label}: coef shape {coef.shape}, max |coef - f64 engine| "
               f"{gap:.3e}, max |beta0 gap| {gap0:.3e}, niter total "
               f"{int(np.sum(niter))} max {int(np.max(niter))} "
               f"(f64 engine total {int(ref.niter.sum())})")
-        smoke.check(finite and coef.shape[0] == 100,
-                    f"{label}: 100 finite lambdas")
+        smoke.check(finite and coef.shape[0] == nlam,
+                    f"{label}: {nlam} finite lambdas")
         smoke.check(gap <= PATH_BAR, f"{label}: within {PATH_BAR} of float64")
 
     # 5. Times.
-    print("phase: times (median of 5 after a warm-up, CUDA events)",
-          flush=True)
-    for name, (kernel, plain, args, _, _) in cases.items():
+    print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "
+          "events)", flush=True)
+    for name, (kernel, plain, args, _, _, nbytes, ops_per_iter) in cases.items():
         ms = cuda_median_ms(torch, lambda: kernel(*args))
         plain_ms = cuda_median_ms(torch, lambda: plain(*args))
-        record[name].update(ms=ms, plain_ms=plain_ms)
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        b_ms, b_by = bound_ms(nbytes, record[name]["niter_total"] * ops_per_iter)
+        record[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} ({record[name]['niter_total']} "
+              f"lane-iterations), library call: none (no single PyTorch "
+              f"call computes a whole solve)")
+    # LAD at 5000 x 1000: H (100 MB) no longer fits the L2.
+    n5 = lad5_args[0].shape[0]
+    _, _, it5 = lad.lad_solve(*lad5_args)
+    ms5 = cuda_median_ms(torch, lambda: lad.lad_solve(*lad5_args), reps=3)
+    plain5 = cuda_median_ms(
+        torch, lambda: lad.lad_solve_reference(*lad5_args), reps=3)
+    b5, by5 = bound_ms(4 * (n5 * n5 + 3 * n5 + 1), int(it5) * 2 * n5 * n5)
+    print(f"  lad_solve 5000 x 1000: kernel {ms5:.3f} ms, plain {plain5:.3f} "
+          f"ms (medians of 3), bound {b5:.4f} ms by {by5} ({int(it5)} "
+          "iterations)")
+    # BP with one signal, from tensors on the card and with the set-up
+    # (AA', its Cholesky inverse, the caches) in both: the kernel route
+    # beside the float32 engine, which reads `done` on the host every
+    # iteration.  Kernel, engine, engine, kernel.
+    b0 = torch.as_tensor(B[0], **f32)
+    solve_args = (At, b0, RHO_L1, MAXIT, EPS_L1, EPS_L1)
+    res_k, res_e = _bp_fit(*solve_args), _bp_fit_engine(*solve_args)
+    ms1 = [cuda_median_ms(torch, lambda: fn(*solve_args))
+           for fn in (_bp_fit, _bp_fit_engine, _bp_fit_engine, _bp_fit)]
+    ms1_kernel_only = cuda_median_ms(torch,
+                                     lambda: bp.bp_batch_solve(*bp1_args))
+    ms1_plain = cuda_median_ms(
+        torch, lambda: bp.bp_batch_solve_reference(*bp1_args))
+    b1, by1 = bound_ms(4 * (Nb * Pb + Nb * Nb + 2 * Pb + 1),
+                       int(res_k.niter) * (4 * Nb * Pb + 2 * Nb * Nb))
+    print(f"  bp m = 1: kernel route {ms1[0]:.3f} and {ms1[3]:.3f} ms "
+          f"({int(res_k.niter)} iterations; the kernel alone "
+          f"{ms1_kernel_only:.3f} ms, its plain form {ms1_plain:.3f} ms, "
+          f"bound {b1:.4f} ms by {by1}), float32 engine {ms1[1]:.3f} and "
+          f"{ms1[2]:.3f} ms ({int(res_e.niter)} iterations), max |z gap| "
+          f"{float((res_k.coef - res_e.coef).abs().max()):.3e}")
     # End to end: numpy in, result on the host out (the input copy, the
-    # standardization, the Gram and Cholesky set-up, the kernel, recovery).
+    # set-up products and Cholesky, the kernel, recovery).
     for label, _, call, _ in calls:
-        print(f"  end to end {label}: {cuda_median_ms(torch, call):.3f} ms")
+        reps = 3 if ("5000" in label or "dantzig" in label) else 5
+        print(f"  end to end {label}: "
+              f"{cuda_median_ms(torch, call, reps=reps):.3f} ms"
+              f"{' (median of 3)' if reps == 3 else ''}")
+
+    # Stage breakdown of one LAD fit and one batched BP solve: what the
+    # entry points do, stage by stage, on the host clock.
+    print("phase: stages (host clock to a synchronize, median of 5 after a "
+          "warm-up)", flush=True)
+
+    def stages(title, steps):
+        total, out = 0.0, None
+        for name, fn in steps:
+            ms, out = host_median_ms(torch, (lambda f=fn, a=out: f(a)))
+            total += ms
+            print(f"  {title} | {name}: {ms:.3f} ms")
+        print(f"  {title} | sum: {total:.3f} ms")
+
+    def lad_recover(a):
+        Xa, ys, stats, Ginv, _, ay, az = a
+        beta0, coef = recover(stats, Ginv @ (Xa.mT @ (ys - ay / RHO_L1 + az)),
+                              standardize_x=True, intercept=False)
+        return beta0.cpu().numpy(), coef.cpu().numpy()
+
+    stages("LAD 1000 x 500", [
+        ("numpy -> device copy of X, y",
+         lambda _: (torch.as_tensor(Xl, **f32), torch.as_tensor(yl, **f32))),
+        ("standardize, Gram, Cholesky inverse",
+         lambda a: _lad_setup(a[0], a[1], False)),
+        ("hat matrix H = Xa Ginv Xa'",
+         lambda a: (*a, _hat_matrix(a[0], a[3]))),
+        ("lad_solve kernel (with the host read of ||ys||)",
+         lambda a: (*a[:5], *lad.lad_solve(a[5], a[1].contiguous(), RHO_L1,
+                                           EPS_L1, EPS_L1, a[4], MAXIT)[:2])),
+        ("recovery solve, un-standardize, to host", lad_recover),
+    ])
+    stages("BP 1000 x 2000 x 100", [
+        ("numpy -> device copy of A, B",
+         lambda _: (torch.as_tensor(A, **f32), torch.as_tensor(B, **f32))),
+        ("AA', Cholesky inverse", lambda a: (*a, _bp_setup(a[0]))),
+        ("K = Winv A, AAAB = B K",
+         lambda a: (a[0], a[2].contiguous(), (a[1] @ (a[2] @ a[0])).contiguous())),
+        ("bp_batch_solve kernel",
+         lambda a: bp.bp_batch_solve(*a, RHO_L1, EPS_L1, EPS_L1, MAXIT)),
+        ("coefficients to host", lambda a: a[0].cpu().numpy()),
+    ])
+    print(f"  whole script: {time.perf_counter() - t_start:.1f} s on the host "
+          "clock")
 
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)
         return 1
+    print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")}
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")}
         for r in record.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

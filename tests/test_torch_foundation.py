@@ -319,3 +319,33 @@ def test_interop_round_trips(std_data):
     np.testing.assert_array_equal(tres.coef.numpy(), coef[:3])
     with pytest.raises(TypeError):
         interop.to_reference(tres, jstd.StdStats)
+
+
+# ---------------------------------------------------------------------------
+# the port stands alone
+# ---------------------------------------------------------------------------
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module of ``admm_tpu_torch`` and not ``chip_smoke.py`` imports
+    ``jax`` or ``admm_tpu``, and the package imports where JAX is absent."""
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    files = sorted(path for path in (root / "admm_tpu_torch").rglob("*.py")
+                   if "_build" not in path.parts)  # build outputs: no sources
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 15
+    pat = re.compile(r"^\s*(from|import)\s+(jax|admm_tpu)(\.|\s|$)", re.M)
+    for path in files:
+        assert not pat.search(path.read_text()), path
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['admm_tpu'] = None; import admm_tpu_torch as t; "
+            "import admm_tpu_torch.interop; "
+            "print(len(t.__all__), sorted(t.kernels.launch_counts()))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=300,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert "bp_batch_solve" in out.stdout and "lad_solve" in out.stdout

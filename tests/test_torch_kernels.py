@@ -1,5 +1,5 @@
-"""The port's path kernels, in their plain PyTorch form on the CPU, against
-the JAX package's Pallas kernels in interpret mode.
+"""The port's kernels, in their plain PyTorch form on the CPU, against the
+JAX package's Pallas kernels in interpret mode.
 
 Both sides get the same inputs, built once by the JAX package and handed
 across with ``admm_tpu_torch.interop`` (the same Minv, X'y, rho, sprad,
@@ -9,7 +9,8 @@ with a power-iteration rounding.  Shapes and bars are those of
 niter within 1 per lane for the batched kernels (the two sides accumulate
 their matrix products in different orders); scan niter totals within
 max(3, 10%) (a one-iteration shift at one lambda moves the next warm
-start); and the wide lane above lambda0 exactly 0.
+start); and the wide lane above lambda0 exactly 0.  The LAD and BP kernels
+are held to the bars of their own Pallas tests, stated at each test.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,14 +18,20 @@ import pytest
 import torch
 
 from admm_tpu.data.standardize import standardize
-from admm_tpu.linalg import dot, gram, ridge_inverse, spectral_radius_sym
+from admm_tpu.core.prox import l2norm
+from admm_tpu.linalg import (chol_inverse, dot, gram, ridge_inverse,
+                             spectral_radius_sym, tgram)
 from admm_tpu.models.lasso import _wide_setup
+from admm_tpu.ops.bp_kernel import bp_batch_solve_pallas
+from admm_tpu.ops.lad_kernel import lad_solve_pallas
 from admm_tpu.ops.tall_path import (tall_path_batch_pallas,
                                     tall_path_scan_pallas)
 from admm_tpu.ops.wide_path import wide_path_batch_pallas
 from admm_tpu_torch import kernels
 from admm_tpu_torch.interop import to_torch
-from admm_tpu_torch.kernels import tall_path, wide_path
+from admm_tpu_torch.kernels import bp, lad, tall_path, wide_path
+from admm_tpu_torch.models import bp as tbp
+from admm_tpu_torch.models import lad as tlad
 from admm_tpu_torch.models import lasso as tlasso
 
 torch.set_num_threads(1)
@@ -134,7 +141,9 @@ def test_wrappers_run_plain_form_on_cpu_without_launching(tall_inputs):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert kernels.launch_counts() == {"tall_path_batch": 0,
                                        "tall_path_scan": 0,
-                                       "wide_path_batch": 0}
+                                       "wide_path_batch": 0,
+                                       "lad_solve": 0,
+                                       "bp_batch_solve": 0}
 
 
 def test_wide_wrapper_runs_plain_form_on_cpu(wide_inputs):
@@ -194,3 +203,165 @@ def test_float32_path_goes_through_the_kernels(monkeypatch):
     monkeypatch.setattr(tall_path, "MAX_P", 4)
     tlasso.lasso_path(X, y, nlambda=3, path_mode="batch", device="cpu")
     assert calls == ["batch", "scan", "wide"]
+
+
+# ---------------------------------------------------------------------------
+# LAD and BP (shapes of tests/test_pallas_kernels.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lad_inputs():
+    """n = 300, p = 20, heavy-tailed noise
+    (test_pallas_kernels.py::test_lad_kernel_matches_xla_solver)."""
+    rng = np.random.default_rng(8)
+    n, p = 300, 20
+    X = rng.normal(size=(n, p))
+    y = X @ rng.normal(size=p) + rng.standard_t(2, size=n)
+    Xs, ys = jnp.asarray(X, jnp.float32), jnp.asarray(y, jnp.float32)
+    Ginv = chol_inverse(gram(Xs), jitter=1e-6)
+    H = dot(Xs, dot(Ginv, Xs.T))
+    return dict(X=X, Xs=Xs, ys=ys, Ginv=Ginv, H=H, ynorm=float(l2norm(ys)),
+                n=n)
+
+
+@pytest.fixture(scope="module")
+def bp_inputs():
+    """n = 60, p = 160, m = 5 signals of 6 nonzeros
+    (test_pallas_kernels.py::test_bp_batch_kernel_matches_xla_solver)."""
+    rng = np.random.default_rng(12)
+    n, p, k, m = 60, 160, 6, 5
+    X0 = np.zeros((m, p))
+    for i in range(m):
+        X0[i, rng.choice(p, k, replace=False)] = rng.normal(size=k)
+    A = jnp.asarray(rng.normal(size=(n, p)) / np.sqrt(n), jnp.float32)
+    B = jnp.asarray(X0, jnp.float32) @ A.T
+    Winv = chol_inverse(tgram(A), jitter=1e-6)
+    AAAB = dot(B, dot(Winv, A))
+    return dict(A=A, Winv=Winv, AAAB=AAAB, X0=X0, p=p)
+
+
+@pytest.mark.parametrize("rho", [1.0, 5.0])
+def test_lad_plain_matches_pallas(lad_inputs, rho):
+    """The terminal duals saturate and are path-dependent near the L1
+    kinks, so, as in the Pallas kernel's own test, the invariant is the
+    recovered coefficient vector (atol 5e-3) and its L1 objective
+    (<= 1.001x), not the raw state."""
+    w = lad_inputs
+    ay_ref, az_ref, n_ref = lad_solve_pallas(
+        w["H"], w["ys"], rho, 1e-5, 1e-5, w["ynorm"], MAXIT, true_n=w["n"],
+        interpret=True)
+    ay, az, niter = lad.lad_solve_reference(
+        to_torch(w["H"]), to_torch(w["ys"]), rho, 1e-5, 1e-5, w["ynorm"],
+        MAXIT)
+    assert ay.dtype == az.dtype == torch.float32
+    assert niter.dtype == torch.int32 and niter.dim() == 0
+    assert 0 < int(niter) <= MAXIT and int(n_ref) > 0
+
+    def coef_of(adj_y, adj_z):
+        v = w["ys"] - jnp.asarray(adj_y) / rho + jnp.asarray(adj_z)
+        return np.asarray(dot(w["Ginv"], dot(w["Xs"].T, v)))
+
+    c_ref, c = coef_of(ay_ref, az_ref), coef_of(ay.numpy(), az.numpy())
+    obj = lambda c: np.abs(np.asarray(w["ys"]) - w["X"] @ c).sum()
+    np.testing.assert_allclose(c, c_ref, atol=5e-3)
+    assert obj(c) <= obj(c_ref) * 1.001
+
+
+@pytest.mark.parametrize("rho", [1.0, 5.0])
+def test_bp_batch_plain_matches_pallas(bp_inputs, rho):
+    """The Pallas test's bars: z within 1e-4, the true signals within
+    1e-3, niter within max(3, 5%) per lane (the two sides accumulate
+    their products in different orders)."""
+    w = bp_inputs
+    z_ref, n_ref = bp_batch_solve_pallas(w["A"], w["Winv"], w["AAAB"], rho,
+                                         1e-6, 1e-6, 3000, true_p=w["p"],
+                                         interpret=True)
+    z, niter = bp.bp_batch_solve_reference(
+        *(to_torch(w[k]) for k in ("A", "Winv", "AAAB")), rho, 1e-6, 1e-6,
+        3000)
+    assert z.dtype == torch.float32 and niter.dtype == torch.int32
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=1e-4)
+    np.testing.assert_allclose(z.numpy(), w["X0"], atol=1e-3)
+    for a, b in zip(niter.numpy(), np.asarray(n_ref)):
+        assert abs(int(a) - int(b)) <= max(3, int(0.05 * int(b)))
+
+
+def test_bp_plain_single_lane_equals_its_row_of_the_batch(bp_inputs):
+    """Lanes never interact: lane i alone gives lane i of the batch, to
+    the bit (what lets one block run one lane, and m = 1 be a grid of
+    one)."""
+    A, Winv, AAAB = (to_torch(bp_inputs[k]) for k in ("A", "Winv", "AAAB"))
+    z, niter = bp.bp_batch_solve_reference(A, Winv, AAAB, 5.0, 2e-5, 2e-5,
+                                           3000)
+    z1, n1 = bp.bp_batch_solve_reference(A, Winv, AAAB[2:3], 5.0, 2e-5, 2e-5,
+                                         3000)
+    assert torch.equal(z1[0], z[2]) and int(n1[0]) == int(niter[2])
+
+
+def test_lad_bp_wrappers_run_plain_form_on_cpu(lad_inputs, bp_inputs):
+    kernels.reset_launch_counts()
+    args = (to_torch(lad_inputs["H"]), to_torch(lad_inputs["ys"]), 5.0, 2e-5,
+            2e-5, lad_inputs["ynorm"], 50)
+    for a, b in zip(lad.lad_solve(*args), lad.lad_solve_reference(*args)):
+        assert torch.equal(a, b)
+    args = (*(to_torch(bp_inputs[k]) for k in ("A", "Winv", "AAAB")), 5.0,
+            2e-5, 2e-5, 50)
+    for a, b in zip(bp.bp_batch_solve(*args),
+                    bp.bp_batch_solve_reference(*args)):
+        assert torch.equal(a, b)
+    counts = kernels.launch_counts()
+    assert counts["lad_solve"] == 0 and counts["bp_batch_solve"] == 0
+
+
+def test_lad_bp_shape_rules():
+    """6n floats (LAD) and 8p + 4n floats (BP) of lane state in one
+    block's 232448 - 2048 bytes of shared memory; there is no rule on the
+    number of BP signals."""
+    assert lad.MAX_N == 9600
+    assert lad.fits(1000) and lad.fits(5000) and lad.fits(9600)
+    assert not lad.fits(9601) and not lad.fits(0)
+    assert bp.fits(1000, 2000)
+    assert bp.fits(1000, (57600 - 4000) // 8)
+    assert not bp.fits(1000, (57600 - 4000) // 8 + 1)
+    assert not bp.fits(1000, 10000) and not bp.fits(0, 10)
+    assert tlad._use_kernel_lad(1000, torch.float32, 0.5)
+    assert not tlad._use_kernel_lad(1000, torch.float64, 0.5)
+    assert not tlad._use_kernel_lad(1000, torch.float32, 0.3)
+    assert not tlad._use_kernel_lad(10000, torch.float32, 0.5)
+    assert tbp._use_kernel_bp(1000, 2000, torch.float32)
+    assert not tbp._use_kernel_bp(1000, 2000, torch.float64)
+    assert not tbp._use_kernel_bp(1000, 10000, torch.float32)
+
+
+def test_float32_lad_and_bp_go_through_the_kernels(monkeypatch):
+    """float32 LAD (tau = 0.5) and every float32 BP solve, one signal
+    included, dispatch to the kernel wrappers; float64, other quantiles
+    and shapes past a kernel's rule take the engine."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(lad, "lad_solve", spy("lad", lad.lad_solve))
+    monkeypatch.setattr(bp, "bp_batch_solve", spy("bp", bp.bp_batch_solve))
+    rng = np.random.default_rng(0)
+    X, y = rng.normal(size=(40, 5)), rng.normal(size=40)
+    A, B = rng.normal(size=(10, 30)), rng.normal(size=(3, 10))
+    kw = dict(device="cpu", maxit=20)
+    tlad.lad_fit(X, y, **kw)
+    tlad.quantile_fit(X, y, tau=0.5, **kw)
+    tbp.bp_fit(A, B[0], **kw)
+    tbp.bp_fit_batch(A, B, **kw)
+    assert calls == ["lad", "lad", "bp", "bp"]
+    tlad.lad_fit(X, y, dtype=torch.float64, **kw)
+    tlad.quantile_fit(X, y, tau=0.3, **kw)
+    tbp.bp_fit(A, B[0], dtype=torch.float64, **kw)
+    tbp.bp_fit_batch(A, B, dtype=torch.float64, **kw)
+    monkeypatch.setattr(lad, "MAX_N", 8)
+    monkeypatch.setattr(bp, "_SMEM_FLOATS", 64)
+    tlad.lad_fit(X, y, **kw)
+    tbp.bp_fit(A, B[0], **kw)
+    assert calls == ["lad", "lad", "bp", "bp"]

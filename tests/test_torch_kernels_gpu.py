@@ -1,4 +1,4 @@
-"""The CUDA path kernels against their plain PyTorch forms, on the card.
+"""The CUDA kernels against their plain PyTorch forms, on the card.
 
 Needs a CUDA device and ``nvcc``; without a device every test skips.  On
 the card, run without the JAX-side ``conftest.py`` (this file imports no
@@ -11,7 +11,9 @@ wide n = 60, p = 150, k = 9 with the first lambda above lambda0), and so
 are the bars: coefficients within 1e-5, niter within 1 per lane for the
 batched kernels, scan niter totals within max(3, 10%).  The kernels and
 their plain forms accumulate in float64 and round in the same places, so
-in practice they agree to the bit.
+in practice they agree to the bit.  The LAD and BP kernels (n = 300,
+p = 20; n = 60, p = 160, m = 5) are held to the bars of the JAX package's
+own Pallas tests, stated at each test.
 """
 import numpy as np
 import pytest
@@ -19,7 +21,8 @@ import torch
 
 from admm_tpu_torch import kernels
 from admm_tpu_torch.data.standardize import standardize
-from admm_tpu_torch.kernels import tall_path, wide_path
+from admm_tpu_torch.kernels import bp, lad, tall_path, wide_path
+from admm_tpu_torch.linalg import chol_inverse, gram, tgram
 from admm_tpu_torch.models.lasso import _tall_setup, _wide_setup
 
 torch.set_num_threads(1)
@@ -125,3 +128,148 @@ def test_kernels_reject_what_they_do_not_take(tall_args, wide_args):
         wide_path.wide_path_batch(Xs, ys, wl.cpu(), wr, *tail)
     with pytest.raises(ValueError, match="contiguous"):
         wide_path.wide_path_batch(Xs.t().contiguous().t(), ys, wl, wr, *tail)
+
+
+@pytest.fixture(scope="module")
+def lad_args(dev):
+    rng = np.random.default_rng(8)
+    n, p = 300, 20
+    X = rng.normal(size=(n, p))
+    y = X @ rng.normal(size=p) + rng.standard_t(2, size=n)
+    Xs = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    Ginv = chol_inverse(gram(Xs), jitter=1e-6)
+    H = (Xs @ (Ginv @ Xs.mT)).contiguous()
+    return dict(X=X, y=y, Xs=Xs, ys=ys, Ginv=Ginv, H=H,
+                ynorm=float(torch.sqrt(torch.sum(ys * ys))))
+
+
+@pytest.fixture(scope="module")
+def bp_args(dev):
+    rng = np.random.default_rng(12)
+    n, p, k, m = 60, 160, 6, 5
+    X0 = np.zeros((m, p))
+    for i in range(m):
+        X0[i, rng.choice(p, k, replace=False)] = rng.normal(size=k)
+    A = torch.as_tensor(rng.normal(size=(n, p)) / np.sqrt(n),
+                        dtype=torch.float32, device=dev)
+    B = torch.as_tensor(X0, dtype=torch.float32, device=dev) @ A.mT
+    Winv = chol_inverse(tgram(A), jitter=1e-6).contiguous()
+    return A, Winv, (B @ (Winv @ A)).contiguous(), X0
+
+
+@pytest.mark.parametrize("rho", [1.0, 5.0])
+def test_lad_kernel_matches_plain(lad_args, rho):
+    """Recovered coefficients within 5e-3 and L1 objective <= 1.001x the
+    plain form's (the terminal duals are path-dependent near the L1
+    kinks); in practice the float64 sums make the two agree far closer,
+    and niter is printed by chip_smoke.py at full size."""
+    w = lad_args
+    args = (w["H"], w["ys"], rho, 1e-5, 1e-5, w["ynorm"], MAXIT)
+    before = kernels.launch_counts()["lad_solve"]
+    ay, az, niter = lad.lad_solve(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lad_solve"] == before + 1
+    ay_ref, az_ref, n_ref = lad.lad_solve_reference(*args)
+    assert ay.is_cuda and ay.shape == az.shape == (300,)
+    assert niter.dtype == torch.int32 and niter.dim() == 0
+    assert abs(int(niter) - int(n_ref)) <= max(3, int(0.05 * int(n_ref)))
+
+    def coef_of(adj_y, adj_z):
+        v = w["ys"] - adj_y / rho + adj_z
+        return (w["Ginv"] @ (w["Xs"].mT @ v)).cpu().numpy().astype(np.float64)
+
+    c, c_ref = coef_of(ay, az), coef_of(ay_ref, az_ref)
+    obj = lambda c: np.abs(w["y"] - w["X"] @ c).sum()
+    np.testing.assert_allclose(c, c_ref, atol=5e-3)
+    assert obj(c) <= obj(c_ref) * 1.001
+
+
+@pytest.mark.parametrize("m", [5, 1])
+@pytest.mark.parametrize("rho", [1.0, 5.0])
+def test_bp_batch_kernel_matches_plain(bp_args, rho, m):
+    """z within 1e-4, the true signals within 1e-3, niter within
+    max(3, 5%) per lane; m = 1 is a grid of one block."""
+    A, Winv, AAAB, X0 = bp_args
+    args = (A, Winv, AAAB[:m].contiguous(), rho, 1e-6, 1e-6, 3000)
+    before = kernels.launch_counts()["bp_batch_solve"]
+    z, niter = bp.bp_batch_solve(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bp_batch_solve"] == before + 1
+    z_ref, n_ref = bp.bp_batch_solve_reference(*args)
+    assert z.is_cuda and z.shape == (m, 160) and niter.dtype == torch.int32
+    assert float((z - z_ref).abs().max()) <= 1e-4
+    np.testing.assert_allclose(z.cpu().numpy(), X0[:m], atol=1e-3)
+    for a, b in zip(niter.cpu().numpy(), n_ref.cpu().numpy()):
+        assert abs(int(a) - int(b)) <= max(3, int(0.05 * int(b)))
+
+
+def test_lad_bp_kernels_reject_what_they_do_not_take(lad_args, bp_args):
+    H, ys = lad_args["H"], lad_args["ys"]
+    rest = (5.0, 1e-5, 1e-5, 1.0, 10)
+    with pytest.raises(TypeError, match="float32"):
+        lad.lad_solve(H.double(), ys.double(), *rest)
+    with pytest.raises(ValueError, match="is on cpu"):
+        lad.lad_solve(H, ys.cpu(), *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        lad.lad_solve(H.t(), ys, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        lad.lad_solve(H, ys[:-1], *rest)
+    A, Winv, AAAB, _ = bp_args
+    tail = (5.0, 1e-5, 1e-5, 10)
+    with pytest.raises(TypeError, match="float32"):
+        bp.bp_batch_solve(A, Winv.double(), AAAB, *tail)
+    with pytest.raises(ValueError, match="is on cpu"):
+        bp.bp_batch_solve(A, Winv, AAAB.cpu(), *tail)
+    with pytest.raises(ValueError, match="contiguous"):
+        bp.bp_batch_solve(A.t().contiguous().t(), Winv, AAAB, *tail)
+    with pytest.raises(ValueError, match="shape"):
+        bp.bp_batch_solve(A, Winv[:-1], AAAB, *tail)
+
+
+@pytest.mark.parametrize("n", [303, lad.MAX_N])
+def test_lad_kernel_odd_and_largest_n(dev, n):
+    """n = 303 is not a multiple of 4, so rows are not 16-byte aligned and
+    the kernel takes its scalar loads; n = MAX_N is the most one block's
+    shared memory holds.  Five iterations, unconverged: the terminal
+    state within 1e-5 of the plain form's, and ``fits`` ends there."""
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    X = torch.randn((n, 12), generator=gen).to(dev)
+    ys = torch.randn((n,), generator=gen).to(dev)
+    H = (X @ (chol_inverse(gram(X), jitter=1e-6) @ X.mT)).contiguous()
+    args = (H, ys, 5.0, 1e-9, 1e-9, float(torch.linalg.norm(ys)), 5)
+    ay, az, niter = lad.lad_solve(*args)
+    torch.cuda.synchronize()
+    ay_ref, az_ref, n_ref = lad.lad_solve_reference(*args)
+    assert int(niter) == int(n_ref) == 5
+    assert float((ay - ay_ref).abs().max()) <= 1e-5
+    assert float((az - az_ref).abs().max()) <= 1e-5
+    assert float(az.abs().max()) > 0.0
+    assert lad.fits(n) and not lad.fits(lad.MAX_N + 1)
+    with pytest.raises(ValueError, match="LAD kernel takes"):
+        lad.lad_solve(torch.zeros((lad.MAX_N + 1, lad.MAX_N + 1), device=dev),
+                      torch.zeros((lad.MAX_N + 1,), device=dev), 5.0, 1e-9,
+                      1e-9, 1.0, 5)
+
+
+def test_bp_kernel_largest_shape(dev):
+    """n = 400, p = 7000 fills one block's shared memory exactly
+    (8p + 4n floats); p + 1 no longer fits.  Three iterations of two
+    lanes: z within 1e-5 of the plain form's."""
+    n, p = 400, 7000
+    assert bp.fits(n, p) and not bp.fits(n, p + 1)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    A = (torch.randn((n, p), generator=gen) / n ** 0.5).to(dev)
+    B = torch.randn((2, n), generator=gen).to(dev)
+    Winv = chol_inverse(tgram(A), jitter=1e-6).contiguous()
+    args = (A, Winv, (B @ (Winv @ A)).contiguous(), 5.0, 1e-9, 1e-9, 3)
+    z, niter = bp.bp_batch_solve(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = bp.bp_batch_solve_reference(*args)
+    assert niter.tolist() == n_ref.tolist() == [3, 3]
+    assert float(z.abs().max()) > 0.0
+    assert float((z - z_ref).abs().max()) <= 1e-5
+    wider = torch.zeros((n, p + 1), device=dev)
+    with pytest.raises(ValueError, match="BP kernel takes"):
+        bp.bp_batch_solve(wider, Winv, torch.zeros((2, p + 1), device=dev),
+                          5.0, 1e-9, 1e-9, 3)
