@@ -1,10 +1,11 @@
 """admm_tpu_torch — the PyTorch/CUDA port of ``admm_tpu``.
 
 A second package beside the JAX one, for one NVIDIA H100.  It holds the
-reference's five exports: the Lasso/Elastic-Net lambda path (tall and
+reference's five exports, the Lasso/Elastic-Net lambda path (tall and
 wide, "scan" and "batch"), LAD and quantile regression, Basis Pursuit
-(one signal or a batch) and the Dantzig selector.  Five of the JAX
-package's Pallas TPU kernels are hand-written CUDA kernels here
+(one signal or a batch) and the Dantzig selector, and the penalized GLM
+paths (logistic, Huber, Poisson and the family objects).  All six of the
+JAX package's Pallas TPU kernels are hand-written CUDA kernels here
 (``csrc/``, built with ``nvcc`` at first use)::
 
     import admm_tpu_torch
@@ -13,9 +14,11 @@ package's Pallas TPU kernels are hand-written CUDA kernels here
     fit.beta          # sparse (p+1) x nlambda, intercepts in row 0
     admm_tpu_torch.admm_lad(x, y).fit().beta             # dense, intercept first
     admm_tpu_torch.admm_bp(A, b).fit().beta              # sparse (p, 1)
+    admm_tpu_torch.logistic_lasso_path(x, labels).coef   # (nlambda, p) tensor
 
 Public names and call signatures are the JAX package's; ``device`` says
-where numpy inputs go.  LAD and BP take ``dtype``: None means
+where numpy inputs go.  The GLM paths take ``dtype`` (float32 by default,
+the kernel's precision).  LAD and BP take ``dtype``: None means
 ``torch.float32`` (the kernels' precision, eps 2e-5), ``torch.float64``
 the reference's double precision (the generic engine, eps 1e-4).
 """
@@ -27,11 +30,16 @@ from .api import (ADMMBP, ADMMLAD, ADMMBPFit, ADMMDantzig, ADMMEnet,
 from .data.standardize import StdStats
 from .models.bp import BPResult, bp_fit, bp_fit_batch
 from .models.dantzig import dantzig_path
+from .models.glm import (GLMFamily, binomial, binomial_cloglog,
+                         binomial_probit, gamma_log, glm_lasso_path, huber,
+                         huber_lasso_path, negative_binomial, poisson,
+                         poisson_lasso_path)
 from .models.lad import LADResult, lad_fit, quantile_fit
 from .models.lasso import (PathResult, adaptive_lasso_path, enet_path,
                            lasso_path)
+from .models.logistic import logistic_lasso_path
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "admm_lasso", "admm_enet", "admm_lad", "admm_bp", "admm_dantzig",
@@ -39,5 +47,8 @@ __all__ = [
     "ADMMLassoFit", "ADMMLADFit", "ADMMBPFit",
     "lasso_path", "enet_path", "adaptive_lasso_path", "lad_fit",
     "quantile_fit", "bp_fit", "bp_fit_batch", "dantzig_path",
+    "glm_lasso_path", "logistic_lasso_path", "huber_lasso_path",
+    "poisson_lasso_path", "GLMFamily", "binomial", "huber", "poisson",
+    "binomial_probit", "binomial_cloglog", "gamma_log", "negative_binomial",
     "PathResult", "LADResult", "BPResult", "StdStats", "__version__",
 ]

@@ -1,8 +1,10 @@
 // Device helpers shared by the path kernels: the proximal operators, the
-// FADMM momentum/restart rule and a block-wide sum of a few scalars.
+// GLM families' gradients, the FADMM momentum/restart rule and a
+// block-wide sum of a few scalars.
 //
 // Counterparts of admm_tpu/ops/_common.py (soft_threshold, enet_prox,
-// fadmm_momentum) and of their plain PyTorch forms in
+// fadmm_momentum), of the prox and family gradients inside
+// admm_tpu/ops/glm_kernel.py, and of their plain PyTorch forms in
 // admm_tpu_torch/kernels/_common.py.  Written once here so that the
 // kernels cannot diverge.
 //
@@ -32,6 +34,25 @@ __device__ __forceinline__ float enet_prox(float v, float pen, float alpha) {
   // (1 - alpha) in float32 from the float32 alpha, as the plain forms do.
   const float denom = 1.0f + pen * (1.0f - alpha);
   return soft_threshold(v, alpha * pen) / denom;
+}
+
+// Elastic-net prox with a per-coordinate penalty lam/rho * mask (mask 0 on
+// the unpenalized intercept).
+__device__ __forceinline__ float masked_enet_prox(float v, float lam_over_rho,
+                                                  float mask, float alpha) {
+  return enet_prox(v, lam_over_rho * mask, alpha);
+}
+
+// dloss/deta of the logistic loss, sigmoid(eta) - y, with the sigmoid as
+// torch.sigmoid computes it in float32: 1 / (1 + expf(-eta)).  At
+// eta << 0 expf overflows to inf and the quotient is 0, which is right.
+__device__ __forceinline__ float binomial_grad_eta(float eta, float y) {
+  return 1.0f / (1.0f + expf(-eta)) - y;
+}
+
+// dloss/deta of the Huber loss in r = y - eta: -clip(r, -M, M).
+__device__ __forceinline__ float huber_grad_eta(float eta, float y, float M) {
+  return -fminf(fmaxf(y - eta, -M), M);
 }
 
 // The scalar half of one FADMM momentum/restart step (reference:
@@ -128,6 +149,33 @@ __device__ __forceinline__ float column_dot(const double* v, const float* col,
                  acc[0]);
   return static_cast<float>(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
                             ((acc[4] + acc[5]) + (acc[6] + acc[7])));
+}
+
+// sum_i row[i] * v[i] over one warp's lanes (the caller reduces the lanes
+// with warp_sum), for one row of a row-major float32 matrix in global
+// memory and a float64 vector in shared memory; exact products accumulated
+// in float64.  16-byte loads where the row starts on a 16-byte boundary and
+// holds a multiple of four elements.
+__device__ __forceinline__ double row_dot(const float* row, const double* v,
+                                          int n, int wlane) {
+  double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
+  if ((n & 3) == 0 && (reinterpret_cast<size_t>(row) & 15) == 0) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll 4
+    for (int i = wlane; i < n / 4; i += kWarp) {
+      const float4 h = __ldg(row4 + i);
+      const double* vv = v + 4 * i;
+      a0 = fma(static_cast<double>(h.x), vv[0], a0);
+      a1 = fma(static_cast<double>(h.y), vv[1], a1);
+      a2 = fma(static_cast<double>(h.z), vv[2], a2);
+      a3 = fma(static_cast<double>(h.w), vv[3], a3);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = wlane; i < n; i += kWarp)
+      a0 = fma(static_cast<double>(__ldg(row + i)), v[i], a0);
+  }
+  return (a0 + a1) + (a2 + a3);
 }
 
 // Largest dynamic shared memory a block may ask for on sm_90, keeping 2 KB

@@ -69,30 +69,6 @@ struct LadParams {
   int maxit;
 };
 
-// sum_i row[i] * v[i] over one warp's lanes (the caller reduces the lanes),
-// exact products accumulated in float64.
-__device__ __forceinline__ double row_dot(const float* row, const double* v,
-                                          int n, int wlane) {
-  double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
-  if ((n & 3) == 0) {  // every row starts on a 16-byte boundary
-    const float4* row4 = reinterpret_cast<const float4*>(row);
-#pragma unroll 4
-    for (int i = wlane; i < n / 4; i += admm::kWarp) {
-      const float4 h = __ldg(row4 + i);
-      const double* vv = v + 4 * i;
-      a0 = fma(static_cast<double>(h.x), vv[0], a0);
-      a1 = fma(static_cast<double>(h.y), vv[1], a1);
-      a2 = fma(static_cast<double>(h.z), vv[2], a2);
-      a3 = fma(static_cast<double>(h.w), vv[3], a3);
-    }
-  } else {
-#pragma unroll 4
-    for (int i = wlane; i < n; i += admm::kWarp)
-      a0 = fma(static_cast<double>(__ldg(row + i)), v[i], a0);
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
 __global__ void __launch_bounds__(kThreads) lad_solve_kernel(LadParams P) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
@@ -136,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) lad_solve_kernel(LadParams P) {
     double s[kLadSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
     for (int j = gwarp; j < n; j += gwarps) {
       const double dot = admm::warp_sum(
-          row_dot(P.hat + static_cast<size_t>(j) * n, v64, n, wlane));
+          admm::row_dot(P.hat + static_cast<size_t>(j) * n, v64, n, wlane));
       if (wlane == 0) {
         const float xn = static_cast<float>(dot);
         const float ay = adj_y[j];

@@ -5,7 +5,7 @@ a CUDA C++ kernel for Hopper (``csrc/*.cu``, built by :mod:`._build` at
 first use) and a wrapper that launches it for CUDA tensors and runs the
 plain PyTorch form for CPU tensors.  Importing this package builds nothing.
 
-The five kernels, by the name their launch count goes under:
+The six kernels, by the name their launch count goes under:
 
 * ``tall_path_batch`` (:mod:`.tall_path`): tall Lasso/Enet path, all
   lambdas at once;
@@ -14,11 +14,13 @@ The five kernels, by the name their launch count goes under:
 * ``wide_path_batch`` (:mod:`.wide_path`): wide Lasso/Enet path, all
   lambdas at once, per-lane adaptive rho;
 * ``lad_solve`` (:mod:`.lad`): one LAD solve against the hat matrix;
-* ``bp_batch_solve`` (:mod:`.bp`): m Basis-Pursuit signals against one A.
+* ``bp_batch_solve`` (:mod:`.bp`): m Basis-Pursuit signals against one A;
+* ``glm_batch_path`` (:mod:`.glm`): fixed-majorizer GLM path (binomial,
+  huber), all lambdas at once.
 """
 from __future__ import annotations
 
-from . import bp, lad, tall_path, wide_path
+from . import bp, glm, lad, tall_path, wide_path
 
 #: (module, counter name) of every kernel's launch count.
 _COUNTERS = {
@@ -27,6 +29,7 @@ _COUNTERS = {
     "wide_path_batch": (wide_path, "batch_launches"),
     "lad_solve": (lad, "solve_launches"),
     "bp_batch_solve": (bp, "batch_launches"),
+    "glm_batch_path": (glm, "batch_launches"),
 }
 
 
@@ -41,5 +44,5 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-__all__ = ["bp", "lad", "launch_counts", "reset_launch_counts", "tall_path",
-           "wide_path"]
+__all__ = ["bp", "glm", "lad", "launch_counts", "reset_launch_counts",
+           "tall_path", "wide_path"]

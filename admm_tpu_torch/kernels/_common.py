@@ -1,9 +1,10 @@
 """Plain PyTorch forms of the pieces every path kernel shares.
 
 Counterparts of ``admm_tpu/ops/_common.py``: ``soft_threshold`` and
-``enet_prox`` (the ones of ``core/prox.py``) and ``fadmm_momentum``, each
-written once more as a ``__device__`` function in
-``csrc/admm_common.cuh``.  They serve the kernels' plain forms (the CPU
+``enet_prox`` (the ones of ``core/prox.py``) and ``fadmm_momentum``, and
+what the GLM kernel adds: the masked elastic-net prox and the gradients
+of its two families.  Each is written once more as a ``__device__``
+function in ``csrc/admm_common.cuh``.  They serve the kernels' plain forms (the CPU
 path and the on-card comparisons) and broadcast over a lane column, so
 they work for one lane (scalars + (p,) rows) and for K lanes ((K, 1)
 columns + (K, p) blocks) alike.
@@ -43,6 +44,23 @@ def fadmm_momentum(now_done, rho, r_pri, extra_sq, z_new, y_new, z_old,
     adj_c_new = torch.where(accel, c_new, adj_c / restart_tol)
     adj_c_new = torch.where(now_done, adj_c, adj_c_new)
     return adj_z_new, adj_y_new, adj_a_new, adj_c_new
+
+
+def masked_enet_prox(v, lam_over_rho, mask, alpha):
+    """Elastic-net prox with a per-coordinate penalty ``lam/rho * mask``
+    (mask 0 on the unpenalized intercept):
+    ``soft_threshold(v, alpha pen) / (1 + pen (1 - alpha))``."""
+    return enet_prox(v, lam_over_rho * mask, alpha)
+
+
+def binomial_grad_eta(eta, y):
+    """dloss/deta of the logistic loss: ``sigmoid(eta) - y``."""
+    return torch.sigmoid(eta) - y
+
+
+def huber_grad_eta(eta, y, M):
+    """dloss/deta of the Huber loss in r = y - eta: ``-clip(r, -M, M)``."""
+    return -torch.clamp(y - eta, -M, M)
 
 
 def sqsum(v):

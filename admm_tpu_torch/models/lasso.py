@@ -48,6 +48,80 @@ class PathResult(NamedTuple):
     trace: Optional[torch.Tensor] = None
 
 
+def _truncate_path(res, dfmax, pmax):
+    """glmnet's ``dfmax``/``pmax``: the longest path PREFIX on which every
+    point has <= dfmax nonzero coefficients (and the ever-active union
+    stays <= pmax); glmnet shortens the returned path rather than
+    erroring.  A host-side trim of a finished result."""
+    coef = res.coef.detach().cpu().numpy()
+    nz = coef != 0 if coef.ndim == 2 else np.any(coef != 0, axis=-1)
+    ok = np.ones(nz.shape[0], bool)
+    if dfmax is not None:
+        ok &= nz.sum(axis=1) <= int(dfmax)
+    if pmax is not None:
+        ever = np.logical_or.accumulate(nz, axis=0)
+        ok &= ever.sum(axis=1) <= int(pmax)
+    bad = np.flatnonzero(~ok)
+    k = int(bad[0]) if bad.size else ok.size
+    if k == 0:
+        raise ValueError("dfmax/pmax exclude even the largest-lambda "
+                         "model; raise the limit")
+    if k == ok.size:
+        return res
+    upd = {f: getattr(res, f)[:k]
+           for f in ("lambdas", "beta0", "coef", "niter")}
+    if getattr(res, "trace", None) is not None:
+        upd["trace"] = res.trace[:k]
+    return res._replace(**upd)
+
+
+def validate_pf_limits(penalty_factor, exclude, lower_limits, upper_limits,
+                       p, dtype, device):
+    """Normalize glmnet's ``penalty.factor`` / ``exclude`` /
+    ``lower.limits`` / ``upper.limits`` into ``(pf, limits)`` on
+    ``device``.
+
+    ``pf``: (p,) factors rescaled to sum p (glmnet convention), or None.
+    ``limits``: ((p,) lo, (p,) up) ORIGINAL-scale box (the path function
+    maps it to its standardized scale), or None; ``exclude`` indices are
+    merged in as the lower = upper = 0 box (exactly equivalent: the prox clips those
+    coordinates to 0 every iteration)."""
+    pf = None
+    if penalty_factor is not None:
+        pf = _as_tensor(penalty_factor, dtype, device).reshape(-1).to(device)
+        if pf.shape != (p,):
+            raise ValueError("penalty_factor must have one entry per "
+                             "column of x")
+        if bool(torch.any(pf < 0)) or not bool(torch.any(pf > 0)):
+            raise ValueError("penalty_factor entries must be >= 0 with "
+                             "at least one positive")
+        pf = pf * (p / torch.sum(pf))  # glmnet: factors sum to nvars
+
+    def bound(limit, default):
+        if isinstance(limit, torch.Tensor):
+            limit = limit.detach().cpu().numpy()
+        return np.broadcast_to(np.asarray(
+            default if limit is None else limit, np.float64), (p,)).copy()
+
+    if exclude is not None:
+        idx = np.asarray(exclude, np.int64).ravel()
+        if idx.size and (idx.min() < 0 or idx.max() >= p):
+            raise ValueError("exclude indices must be in [0, p)")
+        lo, up = bound(lower_limits, -np.inf), bound(upper_limits, np.inf)
+        lo[idx] = 0.0
+        up[idx] = 0.0
+        lower_limits, upper_limits = lo, up
+    limits = None
+    if lower_limits is not None or upper_limits is not None:
+        lo, up = bound(lower_limits, -np.inf), bound(upper_limits, np.inf)
+        if np.any(lo > 0) or np.any(up < 0):
+            raise ValueError("limits must satisfy lower <= 0 <= upper "
+                             "(glmnet convention: 0 stays feasible)")
+        limits = (torch.as_tensor(lo, dtype=dtype, device=device),
+                  torch.as_tensor(up, dtype=dtype, device=device))
+    return pf, limits
+
+
 # Wide scan-mode solves at or past this p auto-dispatch, in the JAX
 # package, to the gathered active-set solver, which is not ported yet.
 _ACTIVESET_AUTO_P = 20000
@@ -120,12 +194,18 @@ def _tall_engine(Xs, ys, lam_first, rho0, alpha):
     return st0, solve, (lambda st: st.z)
 
 
-def _scan_path(st0, solve, report, ilams, maxit, eps_abs, eps_rel):
-    """Warm-started loop over the lambda grid (any engine)."""
+def _scan_path(st0, solve, report, ilams, maxit, eps_abs, eps_rel,
+               refresh=None):
+    """Warm-started loop over the lambda grid (any engine).  ``refresh``
+    (optional) maps the warm-start iterate to a new ``st.aux`` at each
+    lambda: the per-lambda adaptive-majorizer hook of the GLM paths."""
     st = st0
     coefs, niter = [], []
     for lam in ilams:
-        st = solve(warm_start(st, lam), maxit, eps_abs, eps_rel)
+        st = warm_start(st, lam)
+        if refresh is not None:
+            st = st._replace(aux=refresh(st.x))
+        st = solve(st, maxit, eps_abs, eps_rel)
         coefs.append(report(st))
         niter.append(st.it)
     return st, torch.stack(coefs), torch.stack(niter)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
-Lasso/Elastic-Net lambda path, LAD, Basis Pursuit and the Dantzig selector.
+Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector and
+the penalized GLM paths (logistic, Huber, Poisson).
 
     python3 chip_smoke.py
 
@@ -11,10 +12,12 @@ Phases, in order:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions
    and the TF32 settings, which must be off;
 2. the kernel build, timed;
-3. each of the five CUDA kernels against its plain PyTorch version on the
+3. each of the six CUDA kernels against its plain PyTorch version on the
    same inputs at the main path's shapes (the flagship 10000 x 1000 Lasso
    problem with 100 lambdas, the wide 1000 x 2000 one, LAD at 1000 x 500
-   and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one), at
+   and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one, the
+   GLM path at 2000 x 200 with 30 lambdas for the logistic and Huber
+   losses and at 10000 x 1000 with 100 lambdas for the logistic loss), at
    the kernel tests' bars;
 4. the main paths through the public entry points on the card, with every
    launch count set to 0 before and read after, each call's result held
@@ -23,8 +26,9 @@ Phases, in order:
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
    operations over 67 TFLOP/s float32, for the iterations this run's data
-   needed); then the stages of one LAD fit and one batched BP solve on the
-   host clock.
+   needed); the GLM kernel beside the float32 engine on the same batch
+   problem; then the stages of one LAD fit, one batched BP solve and one
+   logistic fit on the host clock.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
 last line.  Exits nonzero, printing no result, without a CUDA device,
@@ -37,6 +41,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +58,12 @@ BP_Z_BAR = 1e-4                           # kernel vs plain, same file
 BP_F64_BAR = 1e-3                         # main path vs float64 engine
 BP_RECOVERY_BAR = 2.11e-3                 # the reference README's published error
 DANTZIG_SHAPE = (2000, 200, 20)           # n, p, nlambda
+# GLM kernel vs plain: the JAX package's bar for its kernel
+# (tests/test_pallas_kernels.py) is the requirement, COEF_BAR and identical
+# niter the target.
+GLM_COEF_BAR = 2e-5
+GLM_SHAPE, GLM_LARGE_SHAPE = (2000, 200, 30), (10000, 1000, 100)
+HUBER_M = 1.345
 # The card's published peaks (H100 SXM data sheet), for the bounds.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -93,6 +104,35 @@ def bp_problem(n, p, k, m=1, seed=123):
         X0[i, rng.choice(p, k, replace=False)] = rng.normal(size=k)
     B = (X0 @ A.astype(np.float64).T).astype(np.float32)
     return A, B, X0
+
+
+def glm_problem(n, p, seed=123):
+    """The JAX package's GLM benchmark problem
+    (benchmarks/glm_sweep.py::problems): a normal design, 10 true slopes,
+    eta = 0.3 + 0.3 X b, a Bernoulli, a noisy and a Poisson response."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    b = np.zeros(p)
+    b[:10] = rng.uniform(0.5, 1.5, 10)
+    eta = 0.3 + X @ b * 0.3
+    return X, {
+        "logistic": (rng.uniform(size=n) < 1 / (1 + np.exp(-eta)))
+        .astype(np.float32),
+        "huber": (eta + 0.3 * rng.normal(size=n)).astype(np.float32),
+        "poisson": rng.poisson(np.exp(np.clip(eta * 0.3, None, 3.0)))
+        .astype(np.float32),
+    }
+
+
+def logistic_problem(n, p, m=100, seed=123):
+    """The flagship Lasso generator's design and coefficients
+    (:func:`make_problem`) with a Bernoulli response of X b."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros(p)
+    b[rng.choice(p, m, replace=False)] = rng.uniform(-1, 1, m)
+    X = rng.normal(size=(n, p))
+    y = rng.uniform(size=n) < 1 / (1 + np.exp(-(X @ b)))
+    return X.astype(np.float32), y.astype(np.float32)
 
 
 def cuda_median_ms(torch, fn, reps=5):
@@ -159,11 +199,17 @@ def main() -> int:
     import admm_tpu_torch
     from admm_tpu_torch import kernels
     from admm_tpu_torch.data.standardize import recover, standardize
-    from admm_tpu_torch.kernels import _build, bp, lad, tall_path, wide_path
+    from admm_tpu_torch.core.engine import make_batched_solver
+    from admm_tpu_torch.kernels import (_build, bp, glm, lad, tall_path,
+                                        wide_path)
     from admm_tpu_torch.models.bp import _bp_fit, _bp_fit_engine, _bp_setup
+    from admm_tpu_torch.models.glm import (_glm_auto_rho, _glm_engine,
+                                           _glm_fixed_minv, binomial, huber,
+                                           prep_design, recover_glm)
     from admm_tpu_torch.models.lad import _hat_matrix, _lad_setup
-    from admm_tpu_torch.models.lasso import (_auto_lambdas, _tall_setup,
-                                             _wide_setup)
+    from admm_tpu_torch.models.lasso import (_auto_lambdas,
+                                             _batched_cold_states, _linspace,
+                                             _tall_setup, _wide_setup)
 
     smoke = Smoke()
     dev = torch.device("cuda:0")
@@ -204,6 +250,10 @@ def main() -> int:
     A, B, X0 = bp_problem(1000, 2000, 100, m=100)
     nd, pd, kd = DANTZIG_SHAPE
     Xd, yd = make_problem(nd, pd, 20)
+    ng, pg, kg = GLM_SHAPE
+    nG, pG, kG = GLM_LARGE_SHAPE
+    Xg, yg = glm_problem(ng, pg)
+    XG, yG = logistic_problem(nG, pG)
     f32 = dict(dtype=torch.float32, device=dev)
 
     def tall_inputs():
@@ -240,11 +290,41 @@ def main() -> int:
         AAAB = (Bt @ (Winv @ At)).contiguous()
         return At.contiguous(), Winv.contiguous(), AAAB
 
+    def glm_lambdas(Xa, yt, fam, nlam, ratio=1e-2):
+        """The auto grid of ``glm_lasso_path`` (intercept, no weights)."""
+        r0 = fam.null_resid(yt, True)
+        lam0 = torch.max(torch.abs(Xa[:, 1:].mT @ r0)) / Xa.shape[0]
+        return torch.exp(_linspace(torch.log(lam0), torch.log(ratio * lam0),
+                                   nlam))
+
+    def glm_inputs(Xn, yn, fam, nlam):
+        """What ``glm_lasso_path(X, y, fam, nlambda=nlam)`` hands the
+        kernel, plus the pieces of the float32 engine on the same problem."""
+        yt = torch.as_tensor(yn, **f32)
+        Xa, pen_mask, _, _ = prep_design(torch.as_tensor(Xn, **f32), True,
+                                         True)
+        rho_g = _glm_auto_rho(fam, -1.0)
+        Minv_g = _glm_fixed_minv(Xa, fam, rho_g).contiguous()
+        lams = glm_lambdas(Xa, yt, fam, nlam).contiguous()
+        args = (Xa.contiguous(), Minv_g, yt, pen_mask, lams, rho_g, EPS, EPS,
+                1.0, MAXIT)
+        return args, dict(family=fam.name, huber_m=fam.param, newton_steps=2)
+
     Minv, Xty, ilams, rho = tall_inputs()
     Xs_w, ys_w, ilams_w, rhos_w, sprad_w, lambda0_w = wide_inputs()
     lad_args, lad_rec = lad_inputs(Xl, yl)
     lad5_args, lad5_rec = lad_inputs(Xl5, yl5)
     At, Winv, AAAB = bp_inputs()
+    glm_cases = {   # label: (kernel arguments, keywords, family)
+        f"glm_batch_path {nG} x {pG} x {kG} binomial":
+            (*glm_inputs(XG, yG, binomial(), kG), binomial()),
+        f"glm_batch_path {ng} x {pg} x {kg} binomial":
+            (*glm_inputs(Xg, yg["logistic"], binomial(), kg), binomial()),
+        f"glm_batch_path {ng} x {pg} x {kg} huber":
+            (*glm_inputs(Xg, yg["huber"], huber(HUBER_M), kg),
+             huber(HUBER_M)),
+    }
+    glm_large = next(iter(glm_cases))
     torch.cuda.synchronize()
     tall_args = (Minv, Xty, ilams, rho, EPS, EPS, 1.0, MAXIT)
     wide_args = (Xs_w, ys_w, ilams_w, rhos_w, sprad_w, lambda0_w, EPS, EPS,
@@ -254,6 +334,18 @@ def main() -> int:
                 MAXIT)
     P, (Nw, Pw), K = Minv.shape[0], Xs_w.shape, ilams.shape[0]
     Nl, (Nb, Pb), Mb = lad_args[0].shape[0], At.shape, AAAB.shape[0]
+
+    def glm_work(args, kw):
+        """(bytes in + out, operations per lane-iteration) of a GLM solve."""
+        (n_, q_), k_ = args[0].shape, args[4].shape[0]
+        return (4 * (n_ * q_ + q_ * q_ + n_ + q_ + k_ + k_ * q_ + k_),
+                kw["newton_steps"] * (4 * n_ * q_ + 2 * q_ * q_))
+
+    def glm_fns(label):
+        """(kernel, plain) of one GLM case, each taking the case's args."""
+        kw = glm_cases[label][1]
+        return (partial(glm.glm_batch_path, **kw),
+                partial(glm.glm_batch_path_reference, **kw))
     # name: (kernel, plain, args, source, replaces,
     #        bytes in + out, operations per lane-iteration)
     cases = {
@@ -282,6 +374,12 @@ def main() -> int:
                            "admm_tpu/ops/bp_kernel.py:62",
                            4 * (Nb * Pb + Nb * Nb + 2 * Mb * Pb + Mb),
                            4 * Nb * Pb + 2 * Nb * Nb),
+        # The JSON line carries the large shape; the two small ones are
+        # compared and timed beside it (glm_cases).
+        "glm_batch_path": (*glm_fns(glm_large), glm_cases[glm_large][0],
+                           "admm_tpu_torch/csrc/glm.cu",
+                           "admm_tpu/ops/glm_kernel.py:55",
+                           *glm_work(*glm_cases[glm_large][:2])),
     }
     record = {}
 
@@ -313,8 +411,48 @@ def main() -> int:
               f"1): {'met' if err <= COEF_BAR and abs(nk - np_) <= 1 else 'not met'}")
         return err, nk, np_
 
+    glm_iters = {}
+
+    def glm_compare(label):
+        """GLM kernel against plain: coefficients and niter per lane."""
+        kernel, plain = glm_fns(label)
+        args = glm_cases[label][0]
+        zk, nk = kernel(*args)
+        torch.cuda.synchronize()
+        zp, np_ = plain(*args)
+        err = float(torch.max(torch.abs(zk - zp)))
+        nk, np_ = nk.cpu().numpy(), np_.cpu().numpy()
+        lane_gap = int(np.abs(nk - np_).max())
+        print(f"  {label}: max |coef gap| {err:.3e} (standardized scale); "
+              f"niter total kernel {nk.sum()} plain {np_.sum()}, max kernel "
+              f"{nk.max()} plain {np_.max()}, min kernel {nk.min()}, max lane "
+              f"gap {lane_gap}, lanes that differ {int((nk != np_).sum())}")
+        smoke.check(bool(torch.isfinite(zk).all()) and int(nk.max()) < MAXIT,
+                    f"{label}: finite, converged before maxit")
+        smoke.check(err <= GLM_COEF_BAR,
+                    f"{label}: coef gap <= {GLM_COEF_BAR}")
+        smoke.check(lane_gap <= 1, f"{label}: niter within 1 per lane")
+        print(f"  {label}: the path kernels' bars (coef gap <= {COEF_BAR}, "
+              f"identical niter): "
+              f"{'met' if err <= COEF_BAR and lane_gap == 0 else 'not met'}")
+        glm_iters[label] = int(nk.sum())
+        return err, int(nk.sum()), int(np_.sum())
+
     for name, (kernel, plain, args, source, replaces, _, _) in cases.items():
         print(f"phase: {name} kernel vs plain", flush=True)
+        if name == "glm_batch_path":
+            # The JSON line carries the largest gap of the three shapes and
+            # the large shape's iterations (its bound and times).
+            err = 0.0
+            for label in glm_cases:
+                gap, *iters = glm_compare(label)
+                err = max(err, gap)
+                if label == glm_large:
+                    nk, np_ = iters
+            record[name] = dict(name=name, route="cuda", source=source,
+                                replaces=replaces, max_abs_err=err,
+                                niter_total=nk, niter_total_plain=np_)
+            continue
         if name == "lad_solve":
             err, nk, np_ = lad_compare("lad_solve 1000 x 500", args, lad_rec)
             lad_compare("lad_solve 5000 x 1000", lad5_args, lad5_rec)
@@ -402,7 +540,24 @@ def main() -> int:
          lambda: t.admm_dantzig(Xd, yd).penalty(nlambda=kd).opts(
              path_mode="batch").fit(),
          lambda: t.dantzig_path(Xd, yd, nlambda=kd, path_mode="batch", **f64)),
+        (f"logistic_lasso_path(Xg, yg, nlambda={kg})  [{ng} x {pg}]",
+         "glm_batch_path",
+         lambda: t.logistic_lasso_path(Xg, yg["logistic"], nlambda=kg),
+         lambda: t.logistic_lasso_path(Xg, yg["logistic"], nlambda=kg, **f64)),
+        (f"huber_lasso_path(Xg, yg, nlambda={kg})  [{ng} x {pg}]",
+         "glm_batch_path",
+         lambda: t.huber_lasso_path(Xg, yg["huber"], nlambda=kg),
+         lambda: t.huber_lasso_path(Xg, yg["huber"], nlambda=kg, **f64)),
+        (f"logistic_lasso_path(XG, yG, nlambda={kG})  [{nG} x {pG}]",
+         "glm_batch_path",
+         lambda: t.logistic_lasso_path(XG, yG, nlambda=kG),
+         lambda: t.logistic_lasso_path(XG, yG, nlambda=kG, **f64)),
+        (f"poisson_lasso_path(Xg, yg, nlambda={kg})  [{ng} x {pg}, scan, "
+         "adaptive, engine]", None,
+         lambda: t.poisson_lasso_path(Xg, yg["poisson"], nlambda=kg),
+         lambda: t.poisson_lasso_path(Xg, yg["poisson"], nlambda=kg, **f64)),
     ]
+    glm_labels = {c[0] for c in calls[-4:]}
     smoke.check(lad.fits(Xl5.shape[0]),
                 "LAD 5000 x 1000 takes the kernel route (fits(5000))")
     # Every path is driven with the counts at 0 just before it and read
@@ -420,6 +575,10 @@ def main() -> int:
                         f"{label}: no kernel on this path")
         else:
             smoke.check(after[kname] > 0, f"{label}: launched {kname}")
+        if label in glm_labels and kname is not None:
+            smoke.check(after == {**dict.fromkeys(after, 0), kname: 1},
+                        f"{label}: {kname} once and no other launch "
+                        f"(counts {after})")
         for name, launched in after.items():
             counts[name] += launched
         outputs.append(out)
@@ -478,7 +637,7 @@ def main() -> int:
         else:
             beta0, coef, niter = (to_np(out.beta0), to_np(out.coef),
                                   to_np(out.niter))
-        nlam = kd if "dantzig" in label else 100
+        nlam = to_np(ref.coef).shape[0]
         gap = float(np.abs(coef - to_np(ref.coef)).max())
         gap0 = float(np.abs(beta0 - to_np(ref.beta0)).max())
         finite = bool(np.isfinite(coef).all() and np.isfinite(beta0).all())
@@ -486,9 +645,12 @@ def main() -> int:
               f"{gap:.3e}, max |beta0 gap| {gap0:.3e}, niter total "
               f"{int(np.sum(niter))} max {int(np.max(niter))} "
               f"(f64 engine total {int(ref.niter.sum())})")
-        smoke.check(finite and coef.shape[0] == nlam,
+        smoke.check(finite and coef.shape == to_np(ref.coef).shape,
                     f"{label}: {nlam} finite lambdas")
         smoke.check(gap <= PATH_BAR, f"{label}: within {PATH_BAR} of float64")
+        if label in glm_labels:
+            smoke.check(gap0 <= PATH_BAR,
+                        f"{label}: intercepts within {PATH_BAR} of float64")
 
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "
@@ -513,6 +675,46 @@ def main() -> int:
     print(f"  lad_solve 5000 x 1000: kernel {ms5:.3f} ms, plain {plain5:.3f} "
           f"ms (medians of 3), bound {b5:.4f} ms by {by5} ({int(it5)} "
           "iterations)")
+    # The GLM kernel at the benchmark problem's size, and beside it the
+    # float32 engine on the same batch problem (the route the path would
+    # take without the kernel: one host read of `done` per iteration).  The
+    # engine call builds its own majorizer inverse, so the kernel side is
+    # timed with `_glm_fixed_minv` too.  Kernel, engine, engine, kernel.
+    for label, (args, kw, fam) in glm_cases.items():
+        if label == glm_large:
+            continue
+        kernel, plain = glm_fns(label)
+        ms = cuda_median_ms(torch, lambda: kernel(*args))
+        plain_ms = cuda_median_ms(torch, lambda: plain(*args))
+        nbytes, ops = glm_work(args, kw)
+        b_ms, b_by = bound_ms(nbytes, glm_iters[label] * ops)
+        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} ({glm_iters[label]} lane-iterations), "
+              "library call: none")
+        Xa_g, _, y_g, mask_g, lams_g, rho_g = args[:6]
+
+        def kernel_route():
+            Minv_g = _glm_fixed_minv(Xa_g, fam, rho_g).contiguous()
+            return glm.glm_batch_path(Xa_g, Minv_g, *args[2:], **kw)
+
+        def engine_route():
+            st0, solve, _, _ = _glm_engine(
+                Xa_g, y_g, fam, lams_g[0], -1.0, mask_g, 1.0,
+                kw["newton_steps"], hessian="fixed")
+            st = _batched_cold_states(lams_g.shape[0], Xa_g.shape[1], st0.rho,
+                                      lams_g)
+            st = make_batched_solver(solve)(st, MAXIT, EPS, EPS)
+            return st.z, st.it
+
+        (zk, nk), (ze, ne) = kernel_route(), engine_route()
+        ms4 = [cuda_median_ms(torch, fn) for fn in
+               (kernel_route, engine_route, engine_route, kernel_route)]
+        print(f"  {label}, with the Gram and its inverse: kernel route "
+              f"{ms4[0]:.3f} and {ms4[3]:.3f} ms ({int(nk.sum())} "
+              f"lane-iterations, slowest lane {int(nk.max())}), float32 engine "
+              f"{ms4[1]:.3f} and {ms4[2]:.3f} ms ({int(ne.sum())} "
+              f"lane-iterations, slowest lane {int(ne.max())}), max |z gap| "
+              f"{float((zk - ze).abs().max()):.3e}")
     # BP with one signal, from tensors on the card and with the set-up
     # (AA', its Cholesky inverse, the caches) in both: the kernel route
     # beside the float32 engine, which reads `done` on the host every
@@ -537,13 +739,14 @@ def main() -> int:
     # End to end: numpy in, result on the host out (the input copy, the
     # set-up products and Cholesky, the kernel, recovery).
     for label, _, call, _ in calls:
-        reps = 3 if ("5000" in label or "dantzig" in label) else 5
+        reps = 3 if ("5000" in label or "dantzig" in label
+                     or f"[{nG} x {pG}]" in label) else 5
         print(f"  end to end {label}: "
               f"{cuda_median_ms(torch, call, reps=reps):.3f} ms"
               f"{' (median of 3)' if reps == 3 else ''}")
 
-    # Stage breakdown of one LAD fit and one batched BP solve: what the
-    # entry points do, stage by stage, on the host clock.
+    # Stage breakdown of one LAD fit, one batched BP solve and one logistic
+    # fit: what the entry points do, stage by stage, on the host clock.
     print("phase: stages (host clock to a synchronize, median of 5 after a "
           "warm-up)", flush=True)
 
@@ -582,6 +785,31 @@ def main() -> int:
         ("bp_batch_solve kernel",
          lambda a: bp.bp_batch_solve(*a, RHO_L1, EPS_L1, EPS_L1, MAXIT)),
         ("coefficients to host", lambda a: a[0].cpu().numpy()),
+    ])
+    fam_b = binomial()
+    rho_b = _glm_auto_rho(fam_b, -1.0)
+
+    def glm_design(a):
+        Xa, pen_mask, mean_x, sd_x = prep_design(a[0], True, True)
+        return Xa.contiguous(), pen_mask, mean_x, sd_x, a[1]
+
+    def glm_recover(a):
+        beta0, coef = recover_glm(a[5][0], a[2], a[3], True)
+        return beta0.cpu().numpy(), coef.cpu().numpy()
+
+    stages(f"logistic {nG} x {pG} x {kG}", [
+        ("numpy -> device copy of X, y",
+         lambda _: (torch.as_tensor(XG, **f32), torch.as_tensor(yG, **f32))),
+        ("prep_design (moments, scaling, ones column)", glm_design),
+        ("lambda grid (null residual, score, log-linear grid)",
+         lambda a: (*a, glm_lambdas(a[0], a[4], fam_b, kG).contiguous())),
+        ("Gram and ridge inverse (_glm_fixed_minv)",
+         lambda a: (*a, _glm_fixed_minv(a[0], fam_b, rho_b).contiguous())),
+        ("glm_batch_path kernel",
+         lambda a: (*a[:5], glm.glm_batch_path(
+             a[0], a[6], a[4], a[1], a[5], rho_b, EPS, EPS, 1.0, MAXIT,
+             family="binomial", newton_steps=2))),
+        ("recover_glm, to host", glm_recover),
     ])
     print(f"  whole script: {time.perf_counter() - t_start:.1f} s on the host "
           "clock")

@@ -9,8 +9,9 @@ with a power-iteration rounding.  Shapes and bars are those of
 niter within 1 per lane for the batched kernels (the two sides accumulate
 their matrix products in different orders); scan niter totals within
 max(3, 10%) (a one-iteration shift at one lambda moves the next warm
-start); and the wide lane above lambda0 exactly 0.  The LAD and BP kernels
-are held to the bars of their own Pallas tests, stated at each test.
+start); and the wide lane above lambda0 exactly 0.  The LAD, BP and GLM
+kernels are held to the bars of their own Pallas tests, stated at each
+test.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,16 +22,22 @@ from admm_tpu.data.standardize import standardize
 from admm_tpu.core.prox import l2norm
 from admm_tpu.linalg import (chol_inverse, dot, gram, ridge_inverse,
                              spectral_radius_sym, tgram)
+from admm_tpu.models.glm import (_glm_auto_rho, _glm_fixed_minv, binomial,
+                                 glm_lasso_path, huber, prep_design,
+                                 recover_glm)
 from admm_tpu.models.lasso import _wide_setup
 from admm_tpu.ops.bp_kernel import bp_batch_solve_pallas
+from admm_tpu.ops.glm_kernel import glm_batch_path_pallas
 from admm_tpu.ops.lad_kernel import lad_solve_pallas
 from admm_tpu.ops.tall_path import (tall_path_batch_pallas,
                                     tall_path_scan_pallas)
 from admm_tpu.ops.wide_path import wide_path_batch_pallas
 from admm_tpu_torch import kernels
 from admm_tpu_torch.interop import to_torch
-from admm_tpu_torch.kernels import bp, lad, tall_path, wide_path
+from admm_tpu_torch.kernels import bp, glm, lad, tall_path, wide_path
+from admm_tpu_torch.kernels._common import check_cuda_input
 from admm_tpu_torch.models import bp as tbp
+from admm_tpu_torch.models import glm as tglm
 from admm_tpu_torch.models import lad as tlad
 from admm_tpu_torch.models import lasso as tlasso
 
@@ -143,7 +150,8 @@ def test_wrappers_run_plain_form_on_cpu_without_launching(tall_inputs):
                                        "tall_path_scan": 0,
                                        "wide_path_batch": 0,
                                        "lad_solve": 0,
-                                       "bp_batch_solve": 0}
+                                       "bp_batch_solve": 0,
+                                       "glm_batch_path": 0}
 
 
 def test_wide_wrapper_runs_plain_form_on_cpu(wide_inputs):
@@ -365,3 +373,144 @@ def test_float32_lad_and_bp_go_through_the_kernels(monkeypatch):
     tlad.lad_fit(X, y, **kw)
     tbp.bp_fit(A, B[0], **kw)
     assert calls == ["lad", "lad", "bp", "bp"]
+
+
+# ---------------------------------------------------------------------------
+# GLM (shapes of tests/test_pallas_kernels.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def glm_inputs():
+    """n = 300, p = 16, 6 lambdas, a Bernoulli and a noisy response
+    (test_pallas_kernels.py::test_glm_kernel_matches_xla_batch_solver)."""
+    rng = np.random.default_rng(51)
+    n, p = 300, 16
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    b = np.zeros(p)
+    b[:4] = [1.5, -2.0, 1.0, 0.5]
+    ys = {"binomial": (rng.uniform(size=n) < 1 / (1 + np.exp(-(X @ b))))
+          .astype(np.float32),
+          "huber": (X @ b + 0.3 * rng.normal(size=n)).astype(np.float32)}
+    fams = {"binomial": binomial(), "huber": huber(1.345)}
+    Xa, pen_mask, mean_x, sd_x = prep_design(jnp.asarray(X), True, True)
+    return dict(X=X, ys=ys, fams=fams, Xa=Xa, pen_mask=pen_mask,
+                mean_x=mean_x, sd_x=sd_x, n=n, q=p + 1)
+
+
+def _glm_args(w, name, alpha):
+    """What both kernels get: the JAX package's Minv, rho and lambda grid."""
+    fam, y = w["fams"][name], w["ys"][name]
+    ref = glm_lasso_path(w["X"], y, fam, nlambda=6, path_mode="batch",
+                         hessian="fixed", alpha=alpha, eps_abs=1e-6,
+                         eps_rel=1e-6, dtype=jnp.float32)
+    rho = _glm_auto_rho(fam, -1.0, jnp.float32)
+    Minv = _glm_fixed_minv(w["Xa"], fam, rho)
+    lams = jnp.asarray(ref.lambdas, jnp.float32)
+    return ref, (w["Xa"], Minv, jnp.asarray(y), w["pen_mask"], lams, rho)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+@pytest.mark.parametrize("newton_steps", [1, 2])
+@pytest.mark.parametrize("name", ["binomial", "huber"])
+def test_glm_plain_matches_pallas(glm_inputs, name, newton_steps, alpha):
+    """The Pallas test's bars: z within 2e-5, niter within 1 per lane (the
+    two sides accumulate their products in different orders, and their
+    sigmoids may differ in the last bit)."""
+    w = glm_inputs
+    fam = w["fams"][name]
+    _, args = _glm_args(w, name, alpha)
+    z_ref, n_ref = glm_batch_path_pallas(
+        *args, 1e-6, 1e-6, jnp.float32(alpha), MAXIT, family=fam.name,
+        huber_m=fam.param, newton_steps=newton_steps, true_q=w["q"],
+        n_total=w["n"], interpret=True)
+    z, niter = glm.glm_batch_path_reference(
+        *(to_torch(a) for a in args[:5]), float(args[5]), 1e-6, 1e-6, alpha,
+        MAXIT, family=fam.name, huber_m=fam.param, newton_steps=newton_steps)
+    assert z.dtype == torch.float32 and niter.dtype == torch.int32
+    assert z.shape == (6, w["q"]) and niter.shape == (6,)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=2e-5)
+    assert np.max(np.abs(niter.numpy() - np.asarray(n_ref))) <= 1
+    assert int(niter.max()) < MAXIT and float(z[-1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("name", ["binomial", "huber"])
+def test_glm_plain_matches_engine_path(glm_inputs, name):
+    """As the Pallas kernel's own test: recovered coefficients within 2e-5
+    of the JAX engine's batch path, niter within 1."""
+    w = glm_inputs
+    fam = w["fams"][name]
+    ref, args = _glm_args(w, name, 1.0)
+    z, niter = glm.glm_batch_path_reference(
+        *(to_torch(a) for a in args[:5]), float(args[5]), 1e-6, 1e-6, 1.0,
+        MAXIT, family=fam.name, huber_m=fam.param, newton_steps=2)
+    beta0, coef = recover_glm(jnp.asarray(z.numpy()), w["mean_x"], w["sd_x"],
+                              True)
+    np.testing.assert_allclose(np.asarray(coef), np.asarray(ref.coef),
+                               atol=2e-5)
+    np.testing.assert_allclose(np.asarray(beta0), np.asarray(ref.beta0),
+                               atol=2e-5)
+    assert np.abs(niter.numpy() - np.asarray(ref.niter)).max() <= 1
+
+
+def test_glm_plain_lane_stops_at_maxit_and_alone_matches_batch(glm_inputs):
+    """A lane that runs out of iterations reports ``maxit``; lanes never
+    interact, so one lane alone gives its row of the batch (to 1e-6 here:
+    the CPU's float64 product of one row and of six rows sum in different
+    orders, and the rounded float32 can differ in the last bit)."""
+    _, args = _glm_args(glm_inputs, "binomial", 1.0)
+    targs = [to_torch(a) for a in args[:5]]
+    kw = dict(family="binomial", newton_steps=2)
+    z, niter = glm.glm_batch_path_reference(*targs, 0.25, 1e-6, 1e-6, 1.0, 25,
+                                            **kw)
+    assert int(niter.max()) == 25 and int(niter.min()) < 25
+    targs[4] = targs[4][3:4]
+    z1, n1 = glm.glm_batch_path_reference(*targs, 0.25, 1e-6, 1e-6, 1.0, 25,
+                                          **kw)
+    assert float((z1[0] - z[3]).abs().max()) <= 1e-6
+    assert abs(int(n1[0]) - int(niter[3])) <= 1
+
+
+def test_glm_wrapper_runs_plain_form_on_cpu(glm_inputs):
+    _, args = _glm_args(glm_inputs, "huber", 1.0)
+    targs = (*(to_torch(a) for a in args[:5]), 1.0, 1e-5, 1e-5, 1.0, 50)
+    kw = dict(family="huber", huber_m=1.345, newton_steps=2)
+    kernels.reset_launch_counts()
+    for a, b in zip(glm.glm_batch_path(*targs, **kw),
+                    glm.glm_batch_path_reference(*targs, **kw)):
+        assert torch.equal(a, b)
+    assert kernels.launch_counts()["glm_batch_path"] == 0
+    with pytest.raises(ValueError, match="serves"):
+        glm.glm_batch_path(*targs, family="poisson")
+
+
+def test_glm_shape_rule():
+    """7q + 2n floats of lane state in one block's 232448 - 2048 bytes of
+    shared memory; there is no rule on the number of lambdas."""
+    assert glm.fits(2000, 201) and glm.fits(10000, 1001)
+    assert glm.fits(10000, (57600 - 20000) // 7)
+    assert not glm.fits(10000, (57600 - 20000) // 7 + 1)
+    assert glm.fits((57600 - 7) // 2, 1)
+    assert not glm.fits((57600 - 7) // 2 + 1, 1)
+    assert not glm.fits(0, 10) and not glm.fits(10, 0)
+    assert tglm._use_kernel_glm(2000, 201, torch.float32)
+    assert not tglm._use_kernel_glm(2000, 201, torch.float64)
+    assert not tglm._use_kernel_glm(40000, 201, torch.float32)
+
+
+def test_check_cuda_input_rules():
+    """What every wrapper checks before a launch, on tensors the CPU can
+    make: class, device, dtype, shape, contiguity."""
+    cpu = torch.device("cpu")
+    good = torch.zeros((4, 3))
+    check_cuda_input("Xa", good, (4, 3), cpu)
+    with pytest.raises(TypeError, match="must be a torch.Tensor"):
+        check_cuda_input("Xa", good.numpy(), (4, 3), cpu)
+    with pytest.raises(ValueError, match="is on meta, expected cpu"):
+        check_cuda_input("Xa", torch.zeros((4, 3), device="meta"), (4, 3),
+                         cpu)
+    with pytest.raises(TypeError, match="float32"):
+        check_cuda_input("Xa", good.double(), (4, 3), cpu)
+    with pytest.raises(ValueError, match="shape"):
+        check_cuda_input("Xa", good, (3, 4), cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_cuda_input("Xa", torch.zeros((3, 4)).t(), (4, 3), cpu)

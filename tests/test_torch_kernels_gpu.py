@@ -12,8 +12,9 @@ are the bars: coefficients within 1e-5, niter within 1 per lane for the
 batched kernels, scan niter totals within max(3, 10%).  The kernels and
 their plain forms accumulate in float64 and round in the same places, so
 in practice they agree to the bit.  The LAD and BP kernels (n = 300,
-p = 20; n = 60, p = 160, m = 5) are held to the bars of the JAX package's
-own Pallas tests, stated at each test.
+p = 20; n = 60, p = 160, m = 5) and the GLM kernel (n = 303, p = 16) are
+held to the bars of the JAX package's own Pallas tests, stated at each
+test.
 """
 import numpy as np
 import pytest
@@ -21,8 +22,10 @@ import torch
 
 from admm_tpu_torch import kernels
 from admm_tpu_torch.data.standardize import standardize
-from admm_tpu_torch.kernels import bp, lad, tall_path, wide_path
+from admm_tpu_torch.kernels import bp, glm, lad, tall_path, wide_path
 from admm_tpu_torch.linalg import chol_inverse, gram, tgram
+from admm_tpu_torch.models.glm import (_glm_auto_rho, _glm_fixed_minv,
+                                       binomial, huber, prep_design)
 from admm_tpu_torch.models.lasso import _tall_setup, _wide_setup
 
 torch.set_num_threads(1)
@@ -273,3 +276,124 @@ def test_bp_kernel_largest_shape(dev):
     with pytest.raises(ValueError, match="BP kernel takes"):
         bp.bp_batch_solve(wider, Winv, torch.zeros((2, p + 1), device=dev),
                           5.0, 1e-9, 1e-9, 3)
+
+
+# ---------------------------------------------------------------------------
+# GLM
+# ---------------------------------------------------------------------------
+
+GLM_FAMILIES = {"binomial": binomial, "huber": huber}
+
+
+def _glm_args(dev, name, intercept, n=303, p=16, k=6, seed=51):
+    """A design whose n is no multiple of 4 or 32; q = p + 1 with the ones
+    column (rows not 16-byte aligned: scalar loads) and q = p without
+    (aligned: 16-byte loads)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    b = np.zeros(p)
+    b[:4] = [1.5, -2.0, 1.0, 0.5]
+    y = ((rng.uniform(size=n) < 1 / (1 + np.exp(-(X @ b))))
+         if name == "binomial" else X @ b + 0.3 * rng.normal(size=n))
+    fam = GLM_FAMILIES[name]()
+    Xa, pen_mask, _, _ = prep_design(torch.as_tensor(X, device=dev), True,
+                                     intercept)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    rho = _glm_auto_rho(fam, -1.0)
+    Minv = _glm_fixed_minv(Xa, fam, rho).contiguous()
+    lam0 = float(torch.max(torch.abs(
+        Xa[:, int(intercept):].mT @ fam.null_resid(ys, intercept))) / n)
+    lams = torch.tensor(np.geomspace(lam0, lam0 * 1e-2, k),
+                        dtype=torch.float32, device=dev)
+    return (Xa.contiguous(), Minv, ys, pen_mask, lams, rho), dict(
+        family=fam.name, huber_m=fam.param)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+@pytest.mark.parametrize("newton_steps", [1, 2, 3])
+@pytest.mark.parametrize("intercept", [True, False])
+@pytest.mark.parametrize("name", ["binomial", "huber"])
+def test_glm_kernel_matches_plain(dev, name, intercept, newton_steps, alpha):
+    """z within 2e-5 and niter within 1 per lane (the JAX package's bar
+    for its kernel); in practice far closer, and chip_smoke.py prints the
+    gap at full size."""
+    args, kw = _glm_args(dev, name, intercept)
+    args = (*args, 1e-6, 1e-6, alpha, MAXIT)
+    before = kernels.launch_counts()["glm_batch_path"]
+    z, niter = glm.glm_batch_path(*args, newton_steps=newton_steps, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["glm_batch_path"] == before + 1
+    z_ref, n_ref = glm.glm_batch_path_reference(
+        *args, newton_steps=newton_steps, **kw)
+    q = 16 + int(intercept)
+    assert z.is_cuda and z.shape == (6, q) and niter.dtype == torch.int32
+    assert float((z - z_ref).abs().max()) <= 2e-5
+    assert int((niter - n_ref).abs().max()) <= 1
+    assert int(niter.max()) < MAXIT and float(z[-1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("name", ["binomial", "huber"])
+def test_glm_kernel_one_lane_and_maxit(dev, name):
+    """k = 1 is a grid of one block and equals its lane of the batch to
+    the bit; a lane that runs out of iterations reports ``maxit`` and the
+    state it reached, as the plain form does."""
+    args, kw = _glm_args(dev, name, True)
+    tail = (1e-6, 1e-6, 1.0, 12)
+    z, niter = glm.glm_batch_path(*args, *tail, **kw)
+    z_ref, n_ref = glm.glm_batch_path_reference(*args, *tail, **kw)
+    torch.cuda.synchronize()
+    assert int(niter.max()) == 12 and niter.tolist() == n_ref.tolist()
+    assert float((z - z_ref).abs().max()) <= 2e-5
+    one = (*args[:4], args[4][5:6].contiguous(), args[5])
+    z1, n1 = glm.glm_batch_path(*one, *tail, **kw)
+    torch.cuda.synchronize()
+    assert z1.shape == (1, 17)
+    assert torch.equal(z1[0], z[5]) and int(n1[0]) == int(niter[5])
+
+
+def test_glm_kernel_largest_shape(dev):
+    """q = 4114 is the widest design one block's shared memory holds at
+    n = 14400 (7q + 2n floats); q + 1 no longer fits.  Two iterations of two lanes:
+    z within 1e-5 of the plain form's."""
+    n, q = 14400, 4114
+    assert glm.fits(n, q) and not glm.fits(n, q + 1)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    Xa = torch.randn((n, q), generator=gen).to(dev)
+    Xa[:, 0] = 1.0
+    ys = (torch.rand((n,), generator=gen) < 0.4).float().to(dev)
+    mask = torch.ones((q,), device=dev)
+    mask[0] = 0.0
+    fam = binomial()
+    Minv = _glm_fixed_minv(Xa, fam, 0.25).contiguous()
+    lams = torch.tensor([0.02, 0.005], device=dev)
+    args = (Xa, Minv, ys, mask, lams, 0.25, 1e-9, 1e-9, 1.0, 2)
+    z, niter = glm.glm_batch_path(*args, family="binomial")
+    torch.cuda.synchronize()
+    z_ref, n_ref = glm.glm_batch_path_reference(*args, family="binomial")
+    assert niter.tolist() == n_ref.tolist() == [2, 2]
+    assert float(z.abs().max()) > 0.0
+    assert float((z - z_ref).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="GLM kernel takes"):
+        glm.glm_batch_path(torch.zeros((n, q + 1), device=dev),
+                           torch.zeros((q + 1, q + 1), device=dev), ys,
+                           torch.ones((q + 1,), device=dev), lams, 0.25, 1e-9,
+                           1e-9, 1.0, 2, family="binomial")
+
+
+def test_glm_kernel_rejects_what_it_does_not_take(dev):
+    (Xa, Minv, ys, mask, lams, rho), kw = _glm_args(dev, "binomial", True)
+    tail = (rho, 1e-5, 1e-5, 1.0, 10)
+    with pytest.raises(TypeError, match="float32"):
+        glm.glm_batch_path(Xa, Minv.double(), ys, mask, lams, *tail, **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        glm.glm_batch_path(Xa, Minv, ys.cpu(), mask, lams, *tail, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        glm.glm_batch_path(Xa.t().contiguous().t(), Minv, ys, mask, lams,
+                           *tail, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        glm.glm_batch_path(Xa, Minv, ys, mask[:-1], lams, *tail, **kw)
+    with pytest.raises(ValueError, match="serves"):
+        glm.glm_batch_path(Xa, Minv, ys, mask, lams, *tail, family="poisson")
+    with pytest.raises(ValueError, match="newton_steps"):
+        glm.glm_batch_path(Xa, Minv, ys, mask, lams, *tail, newton_steps=0,
+                           **kw)
