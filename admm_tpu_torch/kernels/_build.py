@@ -58,10 +58,11 @@ _ENTRIES = {
     "admm_lad_max_grid": [],
     "admm_lad_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
                        _I, _F, _P],
-    "admm_bp_batch_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
-                            _F, _P],
-    "admm_glm_batch_path": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                            _F, _F, _I, _I, _F, _I, _P],
+    "admm_bp_batch_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _F, _F, _F, _I, _F, _P],
+    "admm_glm_batch_path": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _F, _I,
+                            _P],
     "admm_cuda_error_string": [_I],
 }
 

@@ -95,3 +95,55 @@ def check_cuda_input(name: str, t: torch.Tensor, shape, device) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the cooperative-grid kernels (GLM, BP): plain Python,
+# mirrored by ``csrc/admm_common.cuh`` (``row_tile``, ``kMaxLanes``,
+# ``kGemm*``), so that the CPU tests reach it.
+# ---------------------------------------------------------------------------
+
+#: Lanes one launch takes (``admm::kMaxLanes``); more lanes are launched in
+#: groups of this many.
+LANES_PER_LAUNCH = 128
+
+#: Threads of a block, and the dynamic shared memory the product routine
+#: uses: (64 rows + 128 lanes) x 33 double2 (``admm::kGemmSmemBytes``).
+GRID_THREADS = 256
+PRODUCT_SMEM_BYTES = (64 + LANES_PER_LAUNCH) * (64 // 2 + 1) * 16
+
+
+def pad4(d: int) -> int:
+    """The leading dimension of a row of ``d`` floats: the next multiple
+    of four, so that every row starts on a 16-byte boundary."""
+    return (int(d) + 3) // 4 * 4
+
+
+def row_tile(rows: int, b: int, nb: int):
+    """Rows ``[lo, hi)`` of ``rows`` that block ``b`` of ``nb`` owns: sizes
+    differ by at most one, every row has exactly one owner."""
+    return rows * b // nb, rows * (b + 1) // nb
+
+
+def lane_groups(k: int):
+    """``(lo, hi)`` of each launch's lanes."""
+    return [(lo, min(lo + LANES_PER_LAUNCH, k))
+            for lo in range(0, k, LANES_PER_LAUNCH)]
+
+
+def padded_rows(M: torch.Tensor) -> torch.Tensor:
+    """``M`` with its rows zero-padded to :func:`pad4` floats (``M`` itself,
+    made contiguous, when they already are)."""
+    rows, cols = M.shape
+    ld = pad4(cols)
+    if ld == cols:
+        return M.contiguous()
+    out = torch.zeros((rows, ld), dtype=M.dtype, device=M.device)
+    out[:, :cols] = M
+    return out
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the cooperative grid
+    is one block on each."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -8,9 +8,17 @@ runs :func:`bp_batch_solve_reference`, a direct translation of the fused
 loop.  Exact shapes: A (n, p), Winv = (AA')^-1 (n, n), AAAB (m, p) with
 rows ``A' Winv b_i`` -> ``(z (m, p), niter (m,) int32)``.
 
-One block runs one lane, so a single signal (m = 1) is simply a grid of
-one; the TPU kernel's ``m >= 2`` rule is not carried over.  The kernel
-holds 8p + 4n floats of lane state in shared memory; the caller checks
+The kernel is one cooperative grid, one block per SM: the rows of A, of
+Winv' and of A' are split over the blocks and every block works on all
+active lanes, so one load of a matrix element serves every signal
+(``csrc/admm_common.cuh::lanes_product``).  A single signal (m = 1) is the
+same kernel, a matrix-vector product split over the SMs; the TPU kernel's
+``m >= 2`` rule is not carried over.  Lane state (z, y, adj_z, adj_y,
+z_new, y_new, v, x: ``8 m ldp`` floats; t, u: ``2 m ldn`` floats, ``ld*``
+the dimensions padded to a multiple of four) lives in a zeroed float32
+scratch buffer in device memory and the blocks' partial sums of squares in
+``grid m 6`` float64s, which this wrapper allocates with zero-padded
+copies of A, A' and Winv' (:func:`launch_plan`).  The caller checks
 :func:`fits` before it calls.
 """
 from __future__ import annotations
@@ -18,22 +26,51 @@ from __future__ import annotations
 import torch
 
 from ._build import check, load_library
-from ._common import (check_cuda_input, fadmm_momentum, matmul64, rnorm,
-                      soft_threshold, sqsum)
+from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, check_cuda_input,
+                      fadmm_momentum, lane_groups, matmul64, pad4,
+                      padded_rows, rnorm, row_tile, sm_count, soft_threshold,
+                      sqsum)
 
-#: Shared memory one block may hold on sm_90, less 2 KB of scratch.
+#: The dispatch bound of :func:`fits`, in floats: (232448 - 2048) / 4.
 _SMEM_FLOATS = (232448 - 2048) // 4
+
+#: Sums of squares a block writes per lane and iteration, and the
+#: grid-wide syncs of one iteration (one after each product, one before
+#: the totals, the last before the next iteration reads every block's v).
+_SUMS = 6
+SYNCS_PER_ITERATION = 4
 
 #: Launch count: the wrapper adds one where it launches the kernel.
 batch_launches = 0
 
 
 def fits(n: int, p: int) -> bool:
-    """Whether the BP kernel takes an (n, p) problem: the three products'
-    left factors as float64 (v: 2p floats; t, u: 4n floats) and z, y,
-    adj_z, adj_y, z_new, y_new as float32 (6p floats) must fit one block's
-    shared memory."""
+    """Whether the path sends an (n, p) problem to the BP kernel:
+    ``8p + 4n <= 57600``.  This is the port's dispatch rule and no longer
+    a shared-memory size (the first kernel held 8p + 4n floats of lane
+    state in one block's shared memory; the present one keeps lane state
+    in device memory and uses :data:`PRODUCT_SMEM_BYTES` whatever the
+    shape).  Every shape under the bound has been the kernel's since;
+    kernel against engine beyond it is not measured yet."""
     return n >= 1 and p >= 1 and 8 * p + 4 * n <= _SMEM_FLOATS
+
+
+def launch_plan(n: int, p: int, m: int, sms: int) -> dict:
+    """How one call is launched on a card of ``sms`` SMs: the grid, the
+    padded leading dimensions, each block's rows of A and Winv
+    (``n_tiles``) and of A' (``p_tiles``; also its coordinates in the
+    z-update), the lane groups (one launch each) and the scratch sizes of
+    the largest."""
+    ldp, ldn = pad4(p), pad4(n)
+    groups = lane_groups(m)
+    lanes = max(hi - lo for lo, hi in groups)
+    return dict(
+        grid=sms, threads=GRID_THREADS, smem_bytes=PRODUCT_SMEM_BYTES,
+        ldp=ldp, ldn=ldn, lane_groups=groups,
+        n_tiles=[row_tile(n, b, sms) for b in range(sms)],
+        p_tiles=[row_tile(p, b, sms) for b in range(sms)],
+        scratch_floats=8 * lanes * ldp + 2 * lanes * ldn,
+        partial_doubles=sms * lanes * _SUMS)
 
 
 def bp_batch_solve_reference(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
@@ -107,17 +144,34 @@ def bp_batch_solve(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
     if m < 1:
         raise ValueError("AAAB must hold at least one signal")
     lib = load_library()
+    plan = launch_plan(n, p, m, sm_count(dev))
+    ldp, ldn = plan["ldp"], plan["ldn"]
+    # Zero-padded copies, made once per call: rows of A, of its transpose
+    # and of Winv's transpose all start on 16-byte boundaries.  Winv is
+    # symmetric only up to rounding, and ``t Winv`` reads its columns.
+    A_p, AT_p = padded_rows(A), padded_rows(A.mT)
+    WinvT_p = padded_rows(Winv.mT)
     z = torch.empty((m, p), dtype=torch.float32, device=dev)
     niter = torch.empty((m,), dtype=torch.int32, device=dev)
+    partial = torch.empty((plan["partial_doubles"],), dtype=torch.float64,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admm_bp_batch_solve(
-            A.data_ptr(), Winv.data_ptr(), AAAB.data_ptr(), z.data_ptr(),
-            niter.data_ptr(), n, p, m, float(rho), float(eps_abs),
-            float(eps_rel), int(maxit), float(restart_tol), stream)
-    check(lib, err, "admm_bp_batch_solve")
-    batch_launches += 1
+        for lo, hi in plan["lane_groups"]:
+            # The iterates start at 0, and the padding stays 0.
+            scratch = torch.zeros((plan["scratch_floats"],),
+                                  dtype=torch.float32, device=dev)
+            err = lib.admm_bp_batch_solve(
+                A_p.data_ptr(), AT_p.data_ptr(), WinvT_p.data_ptr(),
+                AAAB[lo:hi].data_ptr(), scratch.data_ptr(),
+                partial.data_ptr(), z[lo:hi].data_ptr(),
+                niter[lo:hi].data_ptr(), n, p, hi - lo, ldp, ldn,
+                plan["grid"], float(rho), float(eps_abs), float(eps_rel),
+                int(maxit), float(restart_tol), stream)
+            check(lib, err, "admm_bp_batch_solve")
+            batch_launches += 1
     return z, niter
 
 
-__all__ = ["bp_batch_solve", "bp_batch_solve_reference", "fits"]
+__all__ = ["SYNCS_PER_ITERATION", "bp_batch_solve",
+           "bp_batch_solve_reference", "fits", "launch_plan"]

@@ -12,19 +12,32 @@ ys (n,), pen_mask (q,), lams (k,) -> ``(z (k, q), niter (k,) int32)``.
 
 Minv is symmetric, and kernel and plain form alike take the step's product
 as row dot products, ``Minv grad`` (the JAX kernel writes ``grad Minv``).
-The kernel holds 7q + 2n floats of lane state in shared memory; the caller
-checks :func:`fits` before it calls.
+
+The kernel is one cooperative grid, one block per SM: the rows of Xa, of
+its transpose and of Minv are split over the blocks and every block works
+on all active lanes, so one load of a matrix element serves every lane
+(``csrc/admm_common.cuh::lanes_product``).  Lane state (x, z, y, grad:
+``4 k ldq`` floats; G: ``k ldn`` floats, ``ld*`` the dimensions padded to a
+multiple of four) lives in a zeroed float32 scratch buffer in device memory
+and the blocks' partial sums of squares in ``grid k 5`` float64s, which
+this wrapper allocates with zero-padded copies of Xa, Xa' and Minv
+(:func:`launch_plan`).  The caller checks :func:`fits` before it calls.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
-from ._common import (binomial_grad_eta, check_cuda_input, huber_grad_eta,
-                      masked_enet_prox, matmul64, rnorm)
+from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, binomial_grad_eta,
+                      check_cuda_input, huber_grad_eta, lane_groups,
+                      masked_enet_prox, matmul64, pad4, padded_rows, rnorm,
+                      row_tile, sm_count)
 
-#: Shared memory one block may hold on sm_90, less 2 KB of scratch.
+#: The dispatch bound of :func:`fits`, in floats: (232448 - 2048) / 4.
 _SMEM_FLOATS = (232448 - 2048) // 4
+
+#: Sums of squares a block writes per lane and iteration.
+_SUMS = 5
 
 #: The families the kernel serves, by the integer the C entry takes.
 FAMILIES = {"binomial": 0, "huber": 1}
@@ -34,10 +47,38 @@ batch_launches = 0
 
 
 def fits(n: int, q: int) -> bool:
-    """Whether the GLM kernel takes an (n, q) design: x, z and y (float32,
-    3q floats), B and grad (float64 copies, 4q floats) and the family
-    gradient G (float64, 2n floats) must fit one block's shared memory."""
+    """Whether the path sends an (n, q) design to the GLM kernel:
+    ``7q + 2n <= 57600``.  This is the port's dispatch rule and no longer
+    a shared-memory size (the first kernel held 7q + 2n floats of lane
+    state in one block's shared memory; the present one keeps lane state
+    in device memory and uses :data:`PRODUCT_SMEM_BYTES` whatever the
+    shape).  Every shape under the bound has been the kernel's since;
+    kernel against engine beyond it is not measured yet."""
     return n >= 1 and q >= 1 and 7 * q + 2 * n <= _SMEM_FLOATS
+
+
+def launch_plan(n: int, q: int, k: int, sms: int) -> dict:
+    """How one call is launched on a card of ``sms`` SMs: the grid, the
+    padded leading dimensions, each block's rows of Xa (``n_tiles``) and
+    of Xa' and Minv (``q_tiles``; also its coordinates in the prox), the
+    lane groups (one launch each) and the scratch sizes of the largest."""
+    ldq, ldn = pad4(q), pad4(n)
+    groups = lane_groups(k)
+    lanes = max(hi - lo for lo, hi in groups)
+    return dict(
+        grid=sms, threads=GRID_THREADS, smem_bytes=PRODUCT_SMEM_BYTES,
+        ldq=ldq, ldn=ldn, lane_groups=groups,
+        n_tiles=[row_tile(n, b, sms) for b in range(sms)],
+        q_tiles=[row_tile(q, b, sms) for b in range(sms)],
+        scratch_floats=4 * lanes * ldq + lanes * ldn,
+        partial_doubles=sms * lanes * _SUMS)
+
+
+def syncs_per_iteration(newton_steps: int) -> int:
+    """Grid-wide syncs of one iteration: one after each of the three
+    products of a Newton step, the last step's merged with the prox, and
+    one before the totals."""
+    return 3 * int(newton_steps) + 1
 
 
 def _family_code(family: str) -> int:
@@ -129,19 +170,33 @@ def glm_batch_path(Xa, Minv, ys, pen_mask, lams, rho, eps_abs, eps_rel,
     if int(newton_steps) < 1:
         raise ValueError("newton_steps must be a positive integer")
     lib = load_library()
+    plan = launch_plan(n, q, k, sm_count(dev))
+    ldq, ldn = plan["ldq"], plan["ldn"]
+    # Zero-padded copies, made once per call: rows of Xa, of its transpose
+    # and of Minv all start on 16-byte boundaries.
+    Xa_p, XaT_p, Minv_p = padded_rows(Xa), padded_rows(Xa.mT), padded_rows(Minv)
     z = torch.empty((k, q), dtype=torch.float32, device=dev)
     niter = torch.empty((k,), dtype=torch.int32, device=dev)
+    partial = torch.empty((plan["partial_doubles"],), dtype=torch.float64,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admm_glm_batch_path(
-            Xa.data_ptr(), Minv.data_ptr(), ys.data_ptr(),
-            pen_mask.data_ptr(), lams.data_ptr(), z.data_ptr(),
-            niter.data_ptr(), n, q, k, float(rho), float(eps_abs),
-            float(eps_rel), float(alpha), int(maxit), code, float(huber_m),
-            int(newton_steps), stream)
-    check(lib, err, "admm_glm_batch_path")
-    batch_launches += 1
+        for lo, hi in plan["lane_groups"]:
+            # The iterates start at 0, and the padding stays 0.
+            scratch = torch.zeros((plan["scratch_floats"],),
+                                  dtype=torch.float32, device=dev)
+            err = lib.admm_glm_batch_path(
+                Xa_p.data_ptr(), XaT_p.data_ptr(), Minv_p.data_ptr(),
+                ys.data_ptr(), pen_mask.data_ptr(), lams[lo:hi].data_ptr(),
+                scratch.data_ptr(), partial.data_ptr(), z[lo:hi].data_ptr(),
+                niter[lo:hi].data_ptr(), n, q, hi - lo, ldq, ldn,
+                plan["grid"], float(rho), float(eps_abs), float(eps_rel),
+                float(alpha), int(maxit), code, float(huber_m),
+                int(newton_steps), stream)
+            check(lib, err, "admm_glm_batch_path")
+            batch_launches += 1
     return z, niter
 
 
-__all__ = ["FAMILIES", "fits", "glm_batch_path", "glm_batch_path_reference"]
+__all__ = ["FAMILIES", "fits", "glm_batch_path", "glm_batch_path_reference",
+           "launch_plan", "syncs_per_iteration"]

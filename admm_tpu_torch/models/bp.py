@@ -39,8 +39,9 @@ from .lasso import _as_tensor, _batched_cold_states, _not_ported
 
 
 def _use_kernel_bp(n: int, p: int, dtype) -> bool:
-    """BP kernel: float32, and ``8p + 4n`` floats of lane state in one
-    block's shared memory.  Any number of signals, one included."""
+    """BP kernel: float32, and the port's dispatch bound
+    ``8p + 4n <= 57600`` (``kernels/bp.py::fits``).  Any number of
+    signals, one included."""
     return dtype == torch.float32 and bp_kernel.fits(n, p)
 
 

@@ -539,8 +539,8 @@ def _null_resid_with_offset(family, y, offset, intercept, w=None):
 
 
 def _use_kernel_glm(n: int, q: int, dtype) -> bool:
-    """GLM kernel: float32, and ``7q + 2n`` floats of lane state in one
-    block's shared memory."""
+    """GLM kernel: float32, and the port's dispatch bound
+    ``7q + 2n <= 57600`` (``kernels/glm.py::fits``)."""
     return dtype == torch.float32 and glm_kernel.fits(n, q)
 
 

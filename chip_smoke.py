@@ -18,7 +18,9 @@ Phases, in order:
    and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one, the
    GLM path at 2000 x 200 with 30 lambdas for the logistic and Huber
    losses and at 10000 x 1000 with 100 lambdas for the logistic loss), at
-   the kernel tests' bars;
+   the kernel tests' bars; the GLM and BP kernels (cooperative grids that
+   add the blocks' partial sums in a fixed order) are also launched twice
+   on the same inputs and must give identical bits;
 4. the main paths through the public entry points on the card, with every
    launch count set to 0 before and read after, each call's result held
    against the port's float64 engine run on the card;
@@ -26,9 +28,12 @@ Phases, in order:
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
    operations over 67 TFLOP/s float32, for the iterations this run's data
-   needed); the GLM kernel beside the float32 engine on the same batch
-   problem; then the stages of one LAD fit, one batched BP solve and one
-   logistic fit on the host clock.
+   needed); for the GLM and BP kernels the grid, the grid syncs per
+   iteration, the time per iteration of the slowest lane and the time per
+   iteration with every lane active; the GLM
+   kernel beside the float32 engine on the same batch problem; then the
+   stages of one LAD fit, one batched BP solve and one logistic fit on the
+   host clock.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
 last line.  Exits nonzero, printing no result, without a CUDA device,
@@ -411,7 +416,15 @@ def main() -> int:
               f"1): {'met' if err <= COEF_BAR and abs(nk - np_) <= 1 else 'not met'}")
         return err, nk, np_
 
-    glm_iters = {}
+    glm_iters, slowest = {}, {}   # lane-iterations; slowest lane's niter
+
+    def same_bits_twice(label, kernel, args, first):
+        """No atomics, sums in a fixed order: a second launch on the same
+        inputs must repeat the first one's bits and niter."""
+        z2, n2 = kernel(*args)
+        torch.cuda.synchronize()
+        smoke.check(torch.equal(z2, first[0]) and torch.equal(n2, first[1]),
+                    f"{label}: two launches give identical bits and niter")
 
     def glm_compare(label):
         """GLM kernel against plain: coefficients and niter per lane."""
@@ -419,6 +432,7 @@ def main() -> int:
         args = glm_cases[label][0]
         zk, nk = kernel(*args)
         torch.cuda.synchronize()
+        same_bits_twice(label, kernel, args, (zk, nk))
         zp, np_ = plain(*args)
         err = float(torch.max(torch.abs(zk - zp)))
         nk, np_ = nk.cpu().numpy(), np_.cpu().numpy()
@@ -435,7 +449,7 @@ def main() -> int:
         print(f"  {label}: the path kernels' bars (coef gap <= {COEF_BAR}, "
               f"identical niter): "
               f"{'met' if err <= COEF_BAR and lane_gap == 0 else 'not met'}")
-        glm_iters[label] = int(nk.sum())
+        glm_iters[label], slowest[label] = int(nk.sum()), int(nk.max())
         return err, int(nk.sum()), int(np_.sum())
 
     for name, (kernel, plain, args, source, replaces, _, _) in cases.items():
@@ -462,10 +476,13 @@ def main() -> int:
             continue
         zk, nk = kernel(*args)
         torch.cuda.synchronize()
+        if name == "bp_batch_solve":
+            same_bits_twice(name, kernel, args, (zk, nk))
         zp, np_ = plain(*args)
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(zk - zp)))
         nk, np_ = nk.cpu().numpy(), np_.cpu().numpy()
+        slowest[name] = int(nk.max())
         print(f"  max |coef gap| {err:.3e}; niter total kernel {nk.sum()} "
               f"plain {np_.sum()}, max kernel {nk.max()} plain {np_.max()}, "
               f"max lane gap {np.abs(nk - np_).max()}")
@@ -484,6 +501,7 @@ def main() -> int:
                   f"{'met' if err <= COEF_BAR and np.abs(nk - np_).max() <= 1 else 'not met'}")
             z1, n1 = kernel(*bp1_args)
             torch.cuda.synchronize()
+            same_bits_twice(f"{name}, m = 1", kernel, bp1_args, (z1, n1))
             smoke.check(torch.equal(z1[0], zk[0]) and int(n1[0]) == int(nk[0]),
                         f"{name}: one lane alone (m = 1) equals lane 0 of the "
                         "batch, to the bit")
@@ -665,6 +683,42 @@ def main() -> int:
               f"{b_ms:.4f} ms by {b_by} ({record[name]['niter_total']} "
               f"lane-iterations), library call: none (no single PyTorch "
               f"call computes a whole solve)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def grid_line(label, ms, iters, plan, syncs):
+        """Time per iteration of the slowest lane of a cooperative-grid
+        kernel, with its grid and its grid syncs per iteration."""
+        print(f"  {label}: grid {plan['grid']} blocks x {plan['threads']} "
+              f"threads, {plan['smem_bytes']} bytes of dynamic shared memory, "
+              f"{syncs} grid syncs per iteration, slowest lane {iters} "
+              f"iterations, {ms * 1e3 / iters:.1f} us per iteration of the "
+              "slowest lane")
+
+    grid_line(f"bp_batch_solve {Nb} x {Pb} x {Mb}", record["bp_batch_solve"]["ms"],
+              slowest["bp_batch_solve"], bp.launch_plan(Nb, Pb, Mb, sms),
+              bp.SYNCS_PER_ITERATION)
+    grid_line(glm_large, record["glm_batch_path"]["ms"], slowest[glm_large],
+              glm.launch_plan(nG, pG + 1, kG, sms), glm.syncs_per_iteration(2))
+    # The same two kernels with every lane active in every iteration (a
+    # tolerance of 0 and a fixed number of iterations): what one iteration
+    # costs at full width, beside the average over a run whose lanes drop
+    # out as they converge.
+    FULL_ITERS = 10
+    bp_full = (*bp_args[:4], 0.0, 0.0, FULL_ITERS)
+    glm_full_args = (*glm_cases[glm_large][0][:6], 0.0, 0.0, 1.0, FULL_ITERS)
+    glm_full_kw = glm_cases[glm_large][1]
+    for label, fn, lanes in (
+            (f"bp_batch_solve {Nb} x {Pb} x {Mb}",
+             lambda: bp.bp_batch_solve(*bp_full), Mb),
+            (glm_large,
+             lambda: glm.glm_batch_path(*glm_full_args, **glm_full_kw), kG)):
+        _, n_full = fn()
+        smoke.check(n_full.tolist() == [FULL_ITERS] * lanes,
+                    f"{label}: tolerance 0 runs every lane to maxit")
+        ms_full = cuda_median_ms(torch, fn)
+        print(f"  {label}, all {lanes} lanes active for {FULL_ITERS} "
+              f"iterations: {ms_full:.3f} ms, {ms_full * 1e3 / FULL_ITERS:.1f} "
+              "us per iteration")
     # LAD at 5000 x 1000: H (100 MB) no longer fits the L2.
     n5 = lad5_args[0].shape[0]
     _, _, it5 = lad.lad_solve(*lad5_args)
@@ -691,6 +745,9 @@ def main() -> int:
         print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms by {b_by} ({glm_iters[label]} lane-iterations), "
               "library call: none")
+        grid_line(label, ms, slowest[label],
+                  glm.launch_plan(*args[0].shape, args[4].shape[0], sms),
+                  glm.syncs_per_iteration(kw["newton_steps"]))
         Xa_g, _, y_g, mask_g, lams_g, rho_g = args[:6]
 
         def kernel_route():
@@ -730,6 +787,9 @@ def main() -> int:
         torch, lambda: bp.bp_batch_solve_reference(*bp1_args))
     b1, by1 = bound_ms(4 * (Nb * Pb + Nb * Nb + 2 * Pb + 1),
                        int(res_k.niter) * (4 * Nb * Pb + 2 * Nb * Nb))
+    grid_line(f"bp_batch_solve {Nb} x {Pb}, m = 1", ms1_kernel_only,
+              int(res_k.niter), bp.launch_plan(Nb, Pb, 1, sms),
+              bp.SYNCS_PER_ITERATION)
     print(f"  bp m = 1: kernel route {ms1[0]:.3f} and {ms1[3]:.3f} ms "
           f"({int(res_k.niter)} iterations; the kernel alone "
           f"{ms1_kernel_only:.3f} ms, its plain form {ms1_plain:.3f} ms, "

@@ -34,6 +34,7 @@ from admm_tpu.ops.tall_path import (tall_path_batch_pallas,
 from admm_tpu.ops.wide_path import wide_path_batch_pallas
 from admm_tpu_torch import kernels
 from admm_tpu_torch.interop import to_torch
+from admm_tpu_torch.kernels import _common as kcommon
 from admm_tpu_torch.kernels import bp, glm, lad, tall_path, wide_path
 from admm_tpu_torch.kernels._common import check_cuda_input
 from admm_tpu_torch.models import bp as tbp
@@ -164,9 +165,9 @@ def test_wide_wrapper_runs_plain_form_on_cpu(wide_inputs):
 
 
 def test_kernel_shape_rules():
-    """The kernels hold lane state in one block's shared memory (232448
-    bytes on sm_90, 2 KB kept for scratch); past that the path takes the
-    engine, and the choice is made before any call."""
+    """The Lasso path kernels hold lane state in one block's shared memory
+    (232448 bytes on sm_90, 2 KB kept for scratch); past that the path
+    takes the engine, and the choice is made before any call."""
     assert tall_path.MAX_P == 7200
     assert tall_path.fits(1000) and tall_path.fits(7200)
     assert not tall_path.fits(7201) and not tall_path.fits(0)
@@ -296,8 +297,8 @@ def test_bp_batch_plain_matches_pallas(bp_inputs, rho):
 
 def test_bp_plain_single_lane_equals_its_row_of_the_batch(bp_inputs):
     """Lanes never interact: lane i alone gives lane i of the batch, to
-    the bit (what lets one block run one lane, and m = 1 be a grid of
-    one)."""
+    the bit (what lets the kernel drop a converged lane from its list of
+    active lanes, and m = 1 be the same kernel with one lane)."""
     A, Winv, AAAB = (to_torch(bp_inputs[k]) for k in ("A", "Winv", "AAAB"))
     z, niter = bp.bp_batch_solve_reference(A, Winv, AAAB, 5.0, 2e-5, 2e-5,
                                            3000)
@@ -322,9 +323,11 @@ def test_lad_bp_wrappers_run_plain_form_on_cpu(lad_inputs, bp_inputs):
 
 
 def test_lad_bp_shape_rules():
-    """6n floats (LAD) and 8p + 4n floats (BP) of lane state in one
-    block's 232448 - 2048 bytes of shared memory; there is no rule on the
-    number of BP signals."""
+    """LAD: 6n floats of state in one block's 232448 - 2048 bytes of shared
+    memory.  BP: the dispatch bound 8p + 4n <= 57600 floats, which was the
+    first BP kernel's shared-memory size and is kept as the port's rule
+    (the cooperative-grid kernel keeps lane state in device memory); there
+    is no rule on the number of BP signals."""
     assert lad.MAX_N == 9600
     assert lad.fits(1000) and lad.fits(5000) and lad.fits(9600)
     assert not lad.fits(9601) and not lad.fits(0)
@@ -484,8 +487,10 @@ def test_glm_wrapper_runs_plain_form_on_cpu(glm_inputs):
 
 
 def test_glm_shape_rule():
-    """7q + 2n floats of lane state in one block's 232448 - 2048 bytes of
-    shared memory; there is no rule on the number of lambdas."""
+    """The dispatch bound 7q + 2n <= 57600 floats, which was the first GLM
+    kernel's shared-memory size and is kept as the port's rule (the
+    cooperative-grid kernel keeps lane state in device memory); there is
+    no rule on the number of lambdas."""
     assert glm.fits(2000, 201) and glm.fits(10000, 1001)
     assert glm.fits(10000, (57600 - 20000) // 7)
     assert not glm.fits(10000, (57600 - 20000) // 7 + 1)
@@ -514,3 +519,111 @@ def test_check_cuda_input_rules():
         check_cuda_input("Xa", good, (3, 4), cpu)
     with pytest.raises(ValueError, match="contiguous"):
         check_cuda_input("Xa", torch.zeros((3, 4)).t(), (4, 3), cpu)
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the cooperative-grid kernels (GLM, BP)
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [  # (rows n, columns q or p, lanes)
+    (10000, 1001, 100), (2000, 201, 30), (303, 17, 6), (303, 16, 1),
+    (1000, 2000, 100), (1000, 2000, 1), (14400, 4114, 2), (400, 7000, 2),
+    (5, 9, 3), (61, 163, 130),
+]
+
+
+def _covers_once(tiles, rows):
+    """Consecutive, disjoint ``[lo, hi)`` from 0 to ``rows``, sizes within
+    one of each other."""
+    assert tiles[0][0] == 0 and tiles[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+    sizes = [hi - lo for lo, hi in tiles]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+    return sizes
+
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("n,q,k", PLAN_SHAPES)
+def test_glm_launch_plan(n, q, k, sms):
+    """One block per SM; every row of Xa and every row of Xa' and Minv has
+    exactly one owner; leading dimensions are multiples of four; scratch
+    holds x, z, y, grad (k ldq each) and G (k ldn) for the lanes of one
+    launch, the partial sums grid x lanes x 5 doubles."""
+    plan = glm.launch_plan(n, q, k, sms)
+    assert plan["grid"] == sms == len(plan["n_tiles"]) == len(plan["q_tiles"])
+    assert plan["threads"] == 256
+    _covers_once(plan["n_tiles"], n)
+    sizes = _covers_once(plan["q_tiles"], q)
+    assert max(sizes) == -(-q // sms)
+    assert plan["ldq"] % 4 == 0 and q <= plan["ldq"] < q + 4
+    assert plan["ldn"] % 4 == 0 and n <= plan["ldn"] < n + 4
+    groups = plan["lane_groups"]
+    assert groups[0][0] == 0 and groups[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    lanes = max(hi - lo for lo, hi in groups)
+    assert lanes == min(k, 128)
+    assert plan["scratch_floats"] == lanes * (4 * plan["ldq"] + plan["ldn"])
+    assert plan["partial_doubles"] == sms * lanes * 5
+    assert plan["smem_bytes"] == (64 + 128) * 33 * 16 <= 232448
+
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("n,p,m", PLAN_SHAPES)
+def test_bp_launch_plan(n, p, m, sms):
+    """As for the GLM kernel: rows of A and Winv, rows of A', z, y, adj_z,
+    adj_y, z_new, y_new, v, x (m ldp each) and t, u (m ldn each), six sums
+    per lane and block."""
+    plan = bp.launch_plan(n, p, m, sms)
+    assert plan["grid"] == sms and plan["threads"] == 256
+    _covers_once(plan["n_tiles"], n)
+    _covers_once(plan["p_tiles"], p)
+    assert plan["ldp"] % 4 == 0 and p <= plan["ldp"] < p + 4
+    assert plan["ldn"] % 4 == 0 and n <= plan["ldn"] < n + 4
+    lanes = max(hi - lo for lo, hi in plan["lane_groups"])
+    assert lanes == min(m, 128) and plan["lane_groups"][-1][1] == m
+    assert plan["scratch_floats"] == lanes * (8 * plan["ldp"]
+                                              + 2 * plan["ldn"])
+    assert plan["partial_doubles"] == sms * lanes * 6
+
+
+def test_launch_plan_at_the_main_path_shapes():
+    """The numbers the kernels' notes and docstrings quote: at 132 blocks
+    Xa' (q = 1001) gives a block 7 or 8 rows and A' (p = 2000) 15 or 16;
+    q = 1001 and 201 are padded to 1004 and 204; G for 100 lanes at
+    n = 10000 is 4 MB; the syncs of one iteration."""
+    g = glm.launch_plan(10000, 1001, 100, 132)
+    assert {hi - lo for lo, hi in g["q_tiles"]} == {7, 8}
+    assert {hi - lo for lo, hi in g["n_tiles"]} == {75, 76}
+    assert g["ldq"] == 1004 and glm.launch_plan(2000, 201, 30, 132)["ldq"] == 204
+    assert 100 * g["ldn"] * 4 == 4_000_000
+    b = bp.launch_plan(1000, 2000, 100, 132)
+    assert {hi - lo for lo, hi in b["p_tiles"]} == {15, 16}
+    assert b["scratch_floats"] * 4 == 100 * (8 * 2000 + 2 * 1000) * 4
+    # Fewer rows than blocks: 17 blocks own one row each, the rest none.
+    sizes = [hi - lo for lo, hi in glm.launch_plan(303, 17, 6, 132)["q_tiles"]]
+    assert sorted(set(sizes)) == [0, 1] and sum(sizes) == 17
+    assert glm.syncs_per_iteration(2) == 7 and glm.syncs_per_iteration(1) == 4
+    assert bp.SYNCS_PER_ITERATION == 4
+    # Every shape the dispatch bound admits has a plan, and the bound is
+    # what it was.
+    assert glm.fits(14400, 4114) and not glm.fits(14400, 4115)
+    assert bp.fits(400, 7000) and not bp.fits(400, 7001)
+    assert glm._SMEM_FLOATS == bp._SMEM_FLOATS == 57600
+
+
+def test_padded_rows_and_row_tile():
+    """``padded_rows`` zero-pads to a multiple of four and passes an
+    aligned matrix through; ``row_tile`` is the header's integer rule."""
+    M = torch.arange(15.0).reshape(3, 5)
+    P = kcommon.padded_rows(M)
+    assert P.shape == (3, 8) and P.is_contiguous()
+    assert torch.equal(P[:, :5], M) and float(P[:, 5:].abs().max()) == 0.0
+    T = kcommon.padded_rows(M.mT)          # (5, 3) -> (5, 4)
+    assert T.shape == (5, 4) and torch.equal(T[:, :3], M.mT)
+    Q = torch.ones((2, 8))
+    assert kcommon.padded_rows(Q) is Q
+    assert kcommon.padded_rows(Q.mT).is_contiguous()
+    assert [kcommon.pad4(d) for d in (1, 4, 201, 1001)] == [4, 4, 204, 1004]
+    assert kcommon.row_tile(1001, 131, 132) == (993, 1001)
+    assert kcommon.lane_groups(130) == [(0, 128), (128, 130)]
+    assert kcommon.lane_groups(1) == [(0, 1)]

@@ -192,7 +192,7 @@ def test_lad_kernel_matches_plain(lad_args, rho):
 @pytest.mark.parametrize("rho", [1.0, 5.0])
 def test_bp_batch_kernel_matches_plain(bp_args, rho, m):
     """z within 1e-4, the true signals within 1e-3, niter within
-    max(3, 5%) per lane; m = 1 is a grid of one block."""
+    max(3, 5%) per lane; m = 1 is the same kernel with one lane."""
     A, Winv, AAAB, X0 = bp_args
     args = (A, Winv, AAAB[:m].contiguous(), rho, 1e-6, 1e-6, 3000)
     before = kernels.launch_counts()["bp_batch_solve"]
@@ -256,9 +256,9 @@ def test_lad_kernel_odd_and_largest_n(dev, n):
 
 
 def test_bp_kernel_largest_shape(dev):
-    """n = 400, p = 7000 fills one block's shared memory exactly
-    (8p + 4n floats); p + 1 no longer fits.  Three iterations of two
-    lanes: z within 1e-5 of the plain form's."""
+    """n = 400, p = 7000 meets the dispatch bound of ``fits`` exactly
+    (8p + 4n = 57600); p + 1 is past it and the wrapper refuses it.  Three
+    iterations of two lanes: z within 1e-5 of the plain form's."""
     n, p = 400, 7000
     assert bp.fits(n, p) and not bp.fits(n, p + 1)
     gen = torch.Generator(device="cpu").manual_seed(5)
@@ -287,8 +287,8 @@ GLM_FAMILIES = {"binomial": binomial, "huber": huber}
 
 def _glm_args(dev, name, intercept, n=303, p=16, k=6, seed=51):
     """A design whose n is no multiple of 4 or 32; q = p + 1 with the ones
-    column (rows not 16-byte aligned: scalar loads) and q = p without
-    (aligned: 16-byte loads)."""
+    column (rows padded to a multiple of four by the wrapper) and q = p
+    without (no padding)."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, p)).astype(np.float32)
     b = np.zeros(p)
@@ -334,9 +334,9 @@ def test_glm_kernel_matches_plain(dev, name, intercept, newton_steps, alpha):
 
 @pytest.mark.parametrize("name", ["binomial", "huber"])
 def test_glm_kernel_one_lane_and_maxit(dev, name):
-    """k = 1 is a grid of one block and equals its lane of the batch to
-    the bit; a lane that runs out of iterations reports ``maxit`` and the
-    state it reached, as the plain form does."""
+    """k = 1 is the same kernel with one lane and equals its lane of the
+    batch to the bit; a lane that runs out of iterations reports ``maxit``
+    and the state it reached, as the plain form does."""
     args, kw = _glm_args(dev, name, True)
     tail = (1e-6, 1e-6, 1.0, 12)
     z, niter = glm.glm_batch_path(*args, *tail, **kw)
@@ -352,9 +352,10 @@ def test_glm_kernel_one_lane_and_maxit(dev, name):
 
 
 def test_glm_kernel_largest_shape(dev):
-    """q = 4114 is the widest design one block's shared memory holds at
-    n = 14400 (7q + 2n floats); q + 1 no longer fits.  Two iterations of two lanes:
-    z within 1e-5 of the plain form's."""
+    """q = 4114 is the widest design the dispatch bound of ``fits`` admits
+    at n = 14400 (7q + 2n <= 57600); q + 1 is past it and the wrapper
+    refuses it.  Two iterations of two lanes: z within 1e-5 of the plain
+    form's."""
     n, q = 14400, 4114
     assert glm.fits(n, q) and not glm.fits(n, q + 1)
     gen = torch.Generator(device="cpu").manual_seed(6)
@@ -397,3 +398,109 @@ def test_glm_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="newton_steps"):
         glm.glm_batch_path(Xa, Minv, ys, mask, lams, *tail, newton_steps=0,
                            **kw)
+
+
+# ---------------------------------------------------------------------------
+# The cooperative-grid design of the GLM and BP kernels: every block works
+# on every active lane, lanes leave a compacted list as they converge, and
+# sums across blocks are added in a fixed order.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["binomial", "huber"])
+def test_glm_lanes_that_finish_apart_equal_each_lane_alone(dev, name):
+    """Six lanes converge at different iterations, so the list of active
+    lanes shrinks step by step; each lane must come out as if it had run
+    alone (k = 1), to the bit, with its own niter."""
+    args, kw = _glm_args(dev, name, True)
+    tail = (1e-6, 1e-6, 1.0, MAXIT)
+    z, niter = glm.glm_batch_path(*args, *tail, **kw)
+    torch.cuda.synchronize()
+    assert len(set(niter.tolist())) > 1 and int(niter.max()) < MAXIT
+    for i in range(6):
+        one = (*args[:4], args[4][i:i + 1].contiguous(), args[5])
+        z1, n1 = glm.glm_batch_path(*one, *tail, **kw)
+        assert z1.shape == (1, 17) and int(n1[0]) == int(niter[i])
+        assert torch.equal(z1[0], z[i])
+
+
+def test_bp_lanes_that_finish_apart_equal_each_lane_alone(bp_args):
+    """The same for Basis Pursuit: each of five signals alone (m = 1)
+    equals its lane of the batch to the bit."""
+    A, Winv, AAAB, _ = bp_args
+    tail = (5.0, 1e-6, 1e-6, 3000)
+    z, niter = bp.bp_batch_solve(A, Winv, AAAB, *tail)
+    torch.cuda.synchronize()
+    assert len(set(niter.tolist())) > 1 and int(niter.max()) < 3000
+    for i in range(5):
+        z1, n1 = bp.bp_batch_solve(A, Winv, AAAB[i:i + 1].contiguous(), *tail)
+        assert int(n1[0]) == int(niter[i]) and torch.equal(z1[0], z[i])
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 37, 130])
+def test_glm_kernel_lane_counts(dev, k):
+    """k = 1, fewer lanes than one register tile (4), a ragged number of
+    tiles, and more lanes than one launch takes (128: two launches).  The
+    design (q = 17) has fewer coordinates than the grid has blocks, so
+    most blocks own no row of Minv and still take every grid sync."""
+    (Xa, Minv, ys, mask, lams, rho), kw = _glm_args(dev, "binomial", True)
+    lam_k = torch.tensor(np.geomspace(float(lams[0]), float(lams[-1]), k),
+                         dtype=torch.float32, device=dev)
+    args = (Xa, Minv, ys, mask, lam_k, rho, 1e-6, 1e-6, 1.0, MAXIT)
+    before = kernels.launch_counts()["glm_batch_path"]
+    z, niter = glm.glm_batch_path(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["glm_batch_path"] == before + len(
+        glm.launch_plan(303, 17, k, 132)["lane_groups"])
+    z_ref, n_ref = glm.glm_batch_path_reference(*args, **kw)
+    assert z.shape == (k, 17)
+    assert float((z - z_ref).abs().max()) <= 2e-5
+    assert int((niter - n_ref).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("n,p,m", [(5, 9, 3), (61, 163, 1), (61, 163, 9),
+                                   (200, 1030, 33)])
+def test_bp_kernel_ragged_shapes(dev, n, p, m):
+    """n and p that are no multiples of 4 (padded leading dimensions),
+    fewer rows than the grid has blocks (n = 5, p = 9), one lane, and lane
+    counts that are no multiple of the register tile."""
+    gen = torch.Generator(device="cpu").manual_seed(n + p + m)
+    A = (torch.randn((n, p), generator=gen) / n ** 0.5).to(dev)
+    B = torch.randn((m, n), generator=gen).to(dev)
+    Winv = chol_inverse(tgram(A), jitter=1e-6).contiguous()
+    args = (A, Winv, (B @ (Winv @ A)).contiguous(), 5.0, 1e-5, 1e-5, 400)
+    z, niter = bp.bp_batch_solve(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = bp.bp_batch_solve_reference(*args)
+    assert z.shape == (m, p) and float(z.abs().max()) > 0.0
+    assert float((z - z_ref).abs().max()) <= 1e-4
+    for a, b in zip(niter.tolist(), n_ref.tolist()):
+        assert abs(a - b) <= max(3, int(0.05 * b))
+
+
+def test_bp_kernel_lane_at_maxit(bp_args):
+    """Lanes that run out of iterations report ``maxit`` and the state
+    they reached, as the plain form does."""
+    A, Winv, AAAB, _ = bp_args
+    args = (A, Winv, AAAB, 5.0, 1e-7, 1e-7, 9)
+    z, niter = bp.bp_batch_solve(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = bp.bp_batch_solve_reference(*args)
+    assert niter.tolist() == n_ref.tolist() == [9] * 5
+    assert float((z - z_ref).abs().max()) <= 1e-5
+
+
+def test_two_launches_give_identical_bits(dev, bp_args):
+    """No atomics and sums in a fixed order: the same inputs give the same
+    bits and the same niter twice, for both kernels."""
+    args, kw = _glm_args(dev, "binomial", True)
+    runs = [glm.glm_batch_path(*args, 1e-6, 1e-6, 1.0, MAXIT, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    A, Winv, AAAB, _ = bp_args
+    runs = [bp.bp_batch_solve(A, Winv, AAAB, 5.0, 1e-6, 1e-6, 3000)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
