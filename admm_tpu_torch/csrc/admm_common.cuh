@@ -1,8 +1,8 @@
 // Device helpers shared by the path kernels: the proximal operators, the
 // GLM families' gradients, the FADMM momentum/restart rule, a block-wide
 // sum of a few scalars, and the tall-skinny product of a matrix tile with
-// every active lane's vector (lanes_product) that the GLM and BP kernels
-// are built on.
+// every active lane's vector (lanes_product) that the GLM, BP and wide
+// Lasso kernels are built on.
 //
 // Counterparts of admm_tpu/ops/_common.py (soft_threshold, enet_prox,
 // fadmm_momentum), of the prox and family gradients inside
@@ -92,6 +92,16 @@ constexpr int kWarp = 32;
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum over each aligned group of `width` lanes of a warp (a power of two);
+// every lane of a group gets its group's sum.  The tree is warp_sum's last
+// log2(width) steps: a group whose sum sits in its first `width` lanes gives
+// the bits warp_sum gives when the warp's other lanes hold 0.
+__device__ __forceinline__ double group_sum(double v, int width) {
+  for (int off = width / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
@@ -407,6 +417,37 @@ __device__ __forceinline__ void grid_totals(const double* partial,
   for (int b = wlane; b < nblocks; b += kWarp) {
 #pragma unroll
     for (int k = 0; k < N; ++k) s[k] += __ldcg(partial + b * stride + k);
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) s[k] = warp_sum(s[k]);
+}
+
+// The same totals from partial sums laid out sum-major,
+// partial[k * nblocks + b]: a warp's load of one sum is contiguous over the
+// blocks (a quarter of the L2 sectors of the block-major layout), and the
+// loads of up to 160 blocks are all in flight before the first is added.
+// Thread w adds blocks w, w + 32, ... in that order, as grid_totals does.
+template <int N>
+__device__ __forceinline__ void grid_totals_by_sum(const double* partial,
+                                                   int nblocks, int wlane,
+                                                   double (&s)[N]) {
+  constexpr int kRounds = 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) s[k] = 0.0;
+  for (int b0 = 0; b0 < nblocks; b0 += kRounds * kWarp) {
+    double v[kRounds][N];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int b = b0 + r * kWarp + wlane;
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        v[r][k] = b < nblocks ? __ldcg(partial + k * nblocks + b) : 0.0;
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) s[k] += v[r][k];
+    }
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) s[k] = warp_sum(s[k]);

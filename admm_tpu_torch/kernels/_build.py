@@ -51,10 +51,10 @@ _F = ctypes.c_float
 _ENTRIES = {
     "admm_tall_path_batch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                              _I, _F, _P],
-    "admm_tall_path_scan": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
-                            _I, _F, _P],
-    "admm_wide_path_batch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                             _F, _F, _F, _I, _I, _P],
+    "admm_tall_path_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _F, _F, _F, _F, _I, _F, _P],
+    "admm_wide_path_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
     "admm_lad_max_grid": [],
     "admm_lad_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
                        _I, _F, _P],

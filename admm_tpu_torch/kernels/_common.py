@@ -98,9 +98,9 @@ def check_cuda_input(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The launch plan of the cooperative-grid kernels (GLM, BP): plain Python,
-# mirrored by ``csrc/admm_common.cuh`` (``row_tile``, ``kMaxLanes``,
-# ``kGemm*``), so that the CPU tests reach it.
+# The launch plan of the cooperative-grid kernels (GLM, BP, wide batch, tall
+# scan): plain Python, mirrored by ``csrc/admm_common.cuh`` (``row_tile``,
+# ``kMaxLanes``, ``kGemm*``), so that the CPU tests reach it.
 # ---------------------------------------------------------------------------
 
 #: Lanes one launch takes (``admm::kMaxLanes``); more lanes are launched in

@@ -9,21 +9,34 @@ CUDA tensor each launches its hand-written kernel in
 direct translation of the fused loop.  Both take exact (unpadded) shapes:
 Minv (p, p), Xty (p,), ilams (k,) -> ``(z (k, p), niter (k,) int32)``.
 
-The kernels hold 8p floats of lane state in shared memory (six float32
-rows and one float64 row), so they take ``p <= MAX_P``; the caller checks
-:func:`fits` before it calls.
+The batch kernel runs one block per lane and holds 8p floats of lane
+state in shared memory (six float32 rows and one float64 row), so the
+kernels take ``p <= MAX_P``; the caller checks :func:`fits` before it
+calls.  The scan kernel is one cooperative grid, up to one block per SM
+(:func:`launch_plan`): the columns of Minv, read as rows of a transposed
+copy with a padded leading dimension that this wrapper makes once per
+call, are split over the grid's warps, every block holds a full copy of
+the lane (``2 pad4(p) + 5p`` floats of shared memory) and the blocks exchange
+z_new, y_new and their partial sums of squares through scratch in device
+memory, with one grid-wide sync per iteration.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
-from ._common import (check_cuda_input, enet_prox, fadmm_momentum,
-                      matmul64, rnorm, sqsum)
+from ._common import (GRID_THREADS, check_cuda_input, enet_prox,
+                      fadmm_momentum, matmul64, pad4, padded_rows, rnorm,
+                      row_tile, sm_count, sqsum)
 
 #: Largest p whose 8p floats of lane state fit one block's shared memory
 #: (232448 bytes on sm_90, less 2 KB for the reduction scratch).
 MAX_P = (232448 - 2048) // (8 * 4)
+
+#: Sums of squares a block of the scan kernel writes per iteration, and
+#: the grid-wide syncs of one iteration.
+_SUMS = 6
+SCAN_SYNCS_PER_ITERATION = 1
 
 #: Launch counts, one per kernel: each wrapper adds one where it launches.
 batch_launches = 0
@@ -33,6 +46,26 @@ scan_launches = 0
 def fits(p: int) -> bool:
     """Whether the tall kernels take a problem with ``p`` coefficients."""
     return 1 <= p <= MAX_P
+
+
+def launch_plan(p: int, sms: int) -> dict:
+    """How one scan call is launched on a card of ``sms`` SMs: the grid (one
+    block per SM, no more than one warp per coordinate needs and no more
+    than a block has threads: thread b adds block b's sums), the padded
+    leading dimension of Minv', the dynamic shared memory of a block (the
+    right-hand side as ``ldp`` float64s and z, y, adj_z, adj_y, X'y), each
+    block's columns of ``z_out`` (``col_tiles``) and the scratch the blocks
+    exchange z_new and y_new (``exchange_floats`` each: two buffers of p)
+    and their partial sums through (two buffers of ``6 x grid``).  The
+    lambdas are one launch whatever their number."""
+    ldp = pad4(p)
+    warps = GRID_THREADS // 32
+    grid = max(1, min(int(sms), GRID_THREADS, -(-p // warps)))
+    return dict(
+        grid=grid, threads=GRID_THREADS, smem_bytes=4 * (2 * ldp + 5 * p),
+        ldp=ldp,
+        col_tiles=[row_tile(p, b, grid) for b in range(grid)],
+        exchange_floats=2 * p, partial_doubles=2 * grid * _SUMS)
 
 
 def _sqrt_dim(p, dtype, device):
@@ -131,8 +164,7 @@ def tall_path_scan_reference(Minv, Xty, ilams, rho, eps_abs, eps_rel,
     return z_out, torch.tensor(niters, dtype=torch.int32, device=dev)
 
 
-def _launch(entry, Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
-            restart_tol):
+def _check_inputs(Minv, Xty, ilams):
     p, k = Minv.shape[0], ilams.shape[0]
     dev = Minv.device
     check_cuda_input("Minv", Minv, (p, p), dev)
@@ -142,18 +174,7 @@ def _launch(entry, Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
         raise ValueError(f"tall path kernels take 1 <= p <= {MAX_P}, got {p}")
     if k < 1:
         raise ValueError("ilams must hold at least one lambda")
-    lib = load_library()
-    z = torch.empty((k, p), dtype=torch.float32, device=dev)
-    niter = torch.empty((k,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            Minv.data_ptr(), Xty.data_ptr(), ilams.data_ptr(), z.data_ptr(),
-            niter.data_ptr(), p, k, float(rho), float(eps_abs),
-            float(eps_rel), float(alpha), int(maxit), float(restart_tol),
-            stream)
-    check(lib, err, entry)
-    return z, niter
+    return p, k, dev
 
 
 def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
@@ -168,10 +189,20 @@ def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
         return tall_path_batch_reference(Minv, Xty, ilams, rho, eps_abs,
                                          eps_rel, alpha, maxit,
                                          restart_tol=restart_tol)
-    out = _launch("admm_tall_path_batch", Minv, Xty, ilams, rho, eps_abs,
-                  eps_rel, alpha, maxit, restart_tol)
+    p, k, dev = _check_inputs(Minv, Xty, ilams)
+    lib = load_library()
+    z = torch.empty((k, p), dtype=torch.float32, device=dev)
+    niter = torch.empty((k,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.admm_tall_path_batch(
+            Minv.data_ptr(), Xty.data_ptr(), ilams.data_ptr(), z.data_ptr(),
+            niter.data_ptr(), p, k, float(rho), float(eps_abs),
+            float(eps_rel), float(alpha), int(maxit), float(restart_tol),
+            stream)
+    check(lib, err, "admm_tall_path_batch")
     batch_launches += 1
-    return out
+    return z, niter
 
 
 def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
@@ -186,11 +217,35 @@ def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
         return tall_path_scan_reference(Minv, Xty, ilams, rho, eps_abs,
                                         eps_rel, alpha, maxit,
                                         restart_tol=restart_tol)
-    out = _launch("admm_tall_path_scan", Minv, Xty, ilams, rho, eps_abs,
-                  eps_rel, alpha, maxit, restart_tol)
+    p, k, dev = _check_inputs(Minv, Xty, ilams)
+    lib = load_library()
+    plan = launch_plan(p, sm_count(dev))
+    # ``rhs Minv`` reads Minv's columns, and Minv is symmetric only up to
+    # rounding: the kernel's row dot products go over a transposed copy,
+    # zero-padded so that every row starts on a 16-byte boundary.
+    MinvT = padded_rows(Minv.mT)
+    z = torch.empty((k, p), dtype=torch.float32, device=dev)
+    niter = torch.empty((k,), dtype=torch.int32, device=dev)
+    # Scratch the blocks exchange z_new, y_new and their partial sums
+    # through, double-buffered; none needs initialising.
+    znew = torch.empty((plan["exchange_floats"],), dtype=torch.float32,
+                       device=dev)
+    ynew = torch.empty_like(znew)
+    partial = torch.empty((plan["partial_doubles"],), dtype=torch.float64,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.admm_tall_path_scan(
+            MinvT.data_ptr(), Xty.data_ptr(), ilams.data_ptr(),
+            znew.data_ptr(), ynew.data_ptr(), partial.data_ptr(),
+            z.data_ptr(), niter.data_ptr(), p, plan["ldp"], k, plan["grid"],
+            float(rho), float(eps_abs), float(eps_rel), float(alpha),
+            int(maxit), float(restart_tol), stream)
+    check(lib, err, "admm_tall_path_scan")
     scan_launches += 1
-    return out
+    return z, niter
 
 
-__all__ = ["MAX_P", "fits", "tall_path_batch", "tall_path_batch_reference",
-           "tall_path_scan", "tall_path_scan_reference"]
+__all__ = ["MAX_P", "SCAN_SYNCS_PER_ITERATION", "fits", "launch_plan",
+           "tall_path_batch", "tall_path_batch_reference", "tall_path_scan",
+           "tall_path_scan_reference"]

@@ -8,28 +8,67 @@ hand-written kernel in ``csrc/wide_path.cu``; on a CPU tensor it runs
 Exact shapes: X (n, p), ys (n,), ilams and rhos (k,) -> ``(x (k, p),
 niter (k,) int32)``.
 
-The kernel holds 3p + 5n floats of lane state in shared memory; the
-caller checks :func:`fits` before it calls.
+The kernel is one cooperative grid, one block per SM: the rows of X' and
+of X are split over the blocks and every block works on all active lanes,
+so one load of a matrix element serves every lambda
+(``csrc/admm_common.cuh::lanes_product``).  One lambda (k = 1) is the same
+kernel.  Lane state (x: ``k ldp`` floats; Ax, z, y and the gradient's left
+factor ``Ax + z + y/rho``: ``4 k ldn`` floats, ``ld*`` the dimensions padded
+to a multiple of four) lives in a zeroed float32 scratch buffer in device
+memory and the blocks' partial sums of squares in ``k 5 grid`` float64s,
+which this wrapper allocates with zero-padded copies of X and X'
+(:func:`launch_plan`).  The caller checks :func:`fits` before it calls.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
-from ._common import check_cuda_input, enet_prox, matmul64, rnorm
+from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, check_cuda_input,
+                      enet_prox, lane_groups, matmul64, pad4, padded_rows,
+                      rnorm, row_tile, sm_count)
 
-#: Shared memory one block may hold on sm_90, less 2 KB of scratch.
+#: The dispatch bound of :func:`fits`, in floats: (232448 - 2048) / 4.
 _SMEM_FLOATS = (232448 - 2048) // 4
+
+#: Sums of squares a block writes per lane and iteration, and the
+#: grid-wide syncs of one iteration (one after each product's elementwise
+#: stage, the last after every block has formed its rows of the next
+#: gradient's left factor with the rho the ladder has just set).
+_SUMS = 5
+SYNCS_PER_ITERATION = 3
 
 #: Launch count: the wrapper adds one where it launches the kernel.
 batch_launches = 0
 
 
 def fits(n: int, p: int) -> bool:
-    """Whether the wide kernel takes an (n, p) problem: x (float32 and
-    float64 copies, 3p floats), z, y, Ax (float32) and the gradient's left
-    factor (float64), 5n floats, must fit one block's shared memory."""
+    """Whether the path sends an (n, p) problem to the wide kernel:
+    ``3p + 5n <= 57600``.  This is the port's dispatch rule and no longer
+    a shared-memory size (the first kernel held 3p + 5n floats of lane
+    state in one block's shared memory; the present one keeps lane state
+    in device memory and uses :data:`PRODUCT_SMEM_BYTES` whatever the
+    shape).  Every shape under the bound has been the kernel's since;
+    kernel against engine beyond it is not measured yet."""
     return n >= 1 and p >= 1 and 3 * p + 5 * n <= _SMEM_FLOATS
+
+
+def launch_plan(n: int, p: int, k: int, sms: int) -> dict:
+    """How one call is launched on a card of ``sms`` SMs: the grid, the
+    padded leading dimensions, each block's rows of X (``n_tiles``; also
+    its rows in the z and y updates) and of X' (``p_tiles``; its
+    coordinates in the x-update), the lane groups (one launch each) and
+    the scratch sizes of the largest."""
+    ldp, ldn = pad4(p), pad4(n)
+    groups = lane_groups(k)
+    lanes = max(hi - lo for lo, hi in groups)
+    return dict(
+        grid=sms, threads=GRID_THREADS, smem_bytes=PRODUCT_SMEM_BYTES,
+        ldp=ldp, ldn=ldn, lane_groups=groups,
+        n_tiles=[row_tile(n, b, sms) for b in range(sms)],
+        p_tiles=[row_tile(p, b, sms) for b in range(sms)],
+        scratch_floats=lanes * ldp + 4 * lanes * ldn,
+        partial_doubles=sms * lanes * _SUMS)
 
 
 def wide_path_batch_reference(X, ys, ilams, rhos, sprad, lambda0, eps_abs,
@@ -123,18 +162,33 @@ def wide_path_batch(X, ys, ilams, rhos, sprad, lambda0, eps_abs, eps_rel,
     if k < 1:
         raise ValueError("ilams must hold at least one lambda")
     lib = load_library()
+    plan = launch_plan(n, p, k, sm_count(dev))
+    ldp, ldn = plan["ldp"], plan["ldn"]
+    # Zero-padded copies, made once per call: rows of X and of its
+    # transpose all start on 16-byte boundaries.
+    X_p, XT_p = padded_rows(X), padded_rows(X.mT)
     x = torch.empty((k, p), dtype=torch.float32, device=dev)
     niter = torch.empty((k,), dtype=torch.int32, device=dev)
+    partial = torch.empty((plan["partial_doubles"],), dtype=torch.float64,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admm_wide_path_batch(
-            X.data_ptr(), ys.data_ptr(), ilams.data_ptr(), rhos.data_ptr(),
-            x.data_ptr(), niter.data_ptr(), n, p, k, float(sprad),
-            float(lambda0), float(eps_abs), float(eps_rel), float(alpha),
-            int(maxit), int(rho_start_iter), stream)
-    check(lib, err, "admm_wide_path_batch")
-    batch_launches += 1
+        for lo, hi in plan["lane_groups"]:
+            # The iterates start at 0, and the padding stays 0.
+            scratch = torch.zeros((plan["scratch_floats"],),
+                                  dtype=torch.float32, device=dev)
+            err = lib.admm_wide_path_batch(
+                X_p.data_ptr(), XT_p.data_ptr(), ys.data_ptr(),
+                ilams[lo:hi].data_ptr(), rhos[lo:hi].data_ptr(),
+                scratch.data_ptr(), partial.data_ptr(), x[lo:hi].data_ptr(),
+                niter[lo:hi].data_ptr(), n, p, hi - lo, ldp, ldn,
+                plan["grid"], float(sprad), float(lambda0), float(eps_abs),
+                float(eps_rel), float(alpha), int(maxit),
+                int(rho_start_iter), stream)
+            check(lib, err, "admm_wide_path_batch")
+            batch_launches += 1
     return x, niter
 
 
-__all__ = ["fits", "wide_path_batch", "wide_path_batch_reference"]
+__all__ = ["SYNCS_PER_ITERATION", "fits", "launch_plan", "wide_path_batch",
+           "wide_path_batch_reference"]

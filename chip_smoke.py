@@ -18,9 +18,10 @@ Phases, in order:
    and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one, the
    GLM path at 2000 x 200 with 30 lambdas for the logistic and Huber
    losses and at 10000 x 1000 with 100 lambdas for the logistic loss), at
-   the kernel tests' bars; the GLM and BP kernels (cooperative grids that
-   add the blocks' partial sums in a fixed order) are also launched twice
-   on the same inputs and must give identical bits;
+   the kernel tests' bars; the tall scan, wide, GLM and BP kernels
+   (cooperative grids that add the blocks' partial sums in a fixed order)
+   are also launched twice on the same inputs and must give identical
+   bits;
 4. the main paths through the public entry points on the card, with every
    launch count set to 0 before and read after, each call's result held
    against the port's float64 engine run on the card;
@@ -28,12 +29,13 @@ Phases, in order:
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
    operations over 67 TFLOP/s float32, for the iterations this run's data
-   needed); for the GLM and BP kernels the grid, the grid syncs per
-   iteration, the time per iteration of the slowest lane and the time per
-   iteration with every lane active; the GLM
-   kernel beside the float32 engine on the same batch problem; then the
-   stages of one LAD fit, one batched BP solve and one logistic fit on the
-   host clock.
+   needed); for the tall scan kernel the grid, the grid syncs and the time
+   per iteration over the run; for the wide, GLM and BP kernels the grid,
+   the grid syncs per iteration, the time per iteration of the slowest
+   lane and the time per iteration with every lane active; the GLM kernel
+   beside the float32 engine on the same batch problem; then the stages of
+   one scan-mode Lasso path, one wide fit, one LAD fit, one batched BP
+   solve and one logistic fit on the host clock.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
 last line.  Exits nonzero, printing no result, without a CUDA device,
@@ -203,6 +205,7 @@ def main() -> int:
 
     import admm_tpu_torch
     from admm_tpu_torch import kernels
+    from admm_tpu_torch.api import _sparse_beta
     from admm_tpu_torch.data.standardize import recover, standardize
     from admm_tpu_torch.core.engine import make_batched_solver
     from admm_tpu_torch.kernels import (_build, bp, glm, lad, tall_path,
@@ -476,7 +479,7 @@ def main() -> int:
             continue
         zk, nk = kernel(*args)
         torch.cuda.synchronize()
-        if name == "bp_batch_solve":
+        if name in ("bp_batch_solve", "tall_path_scan", "wide_path_batch"):
             same_bits_twice(name, kernel, args, (zk, nk))
         zp, np_ = plain(*args)
         torch.cuda.synchronize()
@@ -511,6 +514,8 @@ def main() -> int:
             tot_k, tot_p = int(nk.sum()), int(np_.sum())
             smoke.check(abs(tot_k - tot_p) <= max(3, int(0.1 * tot_p)),
                         f"{name}: niter totals within max(3, 10%)")
+            print(f"  {name}: the target (gap 0, identical niter at every "
+                  f"lambda): {'met' if err == 0.0 and (nk == np_).all() else 'not met'}")
         elif name != "bp_batch_solve":
             smoke.check(int(np.abs(nk - np_).max()) <= 1,
                         f"{name}: niter within 1 per lane")
@@ -685,21 +690,28 @@ def main() -> int:
               f"call computes a whole solve)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def grid_line(label, ms, iters, plan, syncs):
+    def grid_line(label, ms, iters, plan, syncs, of="the slowest lane"):
         """Time per iteration of the slowest lane of a cooperative-grid
         kernel, with its grid and its grid syncs per iteration."""
         print(f"  {label}: grid {plan['grid']} blocks x {plan['threads']} "
               f"threads, {plan['smem_bytes']} bytes of dynamic shared memory, "
-              f"{syncs} grid syncs per iteration, slowest lane {iters} "
-              f"iterations, {ms * 1e3 / iters:.1f} us per iteration of the "
-              "slowest lane")
+              f"{syncs} grid syncs per iteration, {of} {iters} "
+              f"iterations, {ms * 1e3 / iters:.1f} us per iteration of {of}")
 
+    grid_line(f"tall_path_scan {P} x {P} x {K}", record["tall_path_scan"]["ms"],
+              record["tall_path_scan"]["niter_total"],
+              tall_path.launch_plan(P, sms),
+              tall_path.SCAN_SYNCS_PER_ITERATION, of="the one lane")
+    grid_line(f"wide_path_batch {Nw} x {Pw} x {K}",
+              record["wide_path_batch"]["ms"], slowest["wide_path_batch"],
+              wide_path.launch_plan(Nw, Pw, K, sms),
+              wide_path.SYNCS_PER_ITERATION)
     grid_line(f"bp_batch_solve {Nb} x {Pb} x {Mb}", record["bp_batch_solve"]["ms"],
               slowest["bp_batch_solve"], bp.launch_plan(Nb, Pb, Mb, sms),
               bp.SYNCS_PER_ITERATION)
     grid_line(glm_large, record["glm_batch_path"]["ms"], slowest[glm_large],
               glm.launch_plan(nG, pG + 1, kG, sms), glm.syncs_per_iteration(2))
-    # The same two kernels with every lane active in every iteration (a
+    # The batch kernels with every lane active in every iteration (a
     # tolerance of 0 and a fixed number of iterations): what one iteration
     # costs at full width, beside the average over a run whose lanes drop
     # out as they converge.
@@ -707,7 +719,10 @@ def main() -> int:
     bp_full = (*bp_args[:4], 0.0, 0.0, FULL_ITERS)
     glm_full_args = (*glm_cases[glm_large][0][:6], 0.0, 0.0, 1.0, FULL_ITERS)
     glm_full_kw = glm_cases[glm_large][1]
+    wide_full = (*wide_args[:6], 0.0, 0.0, 1.0, FULL_ITERS)
     for label, fn, lanes in (
+            (f"wide_path_batch {Nw} x {Pw} x {K}",
+             lambda: wide_path.wide_path_batch(*wide_full), K),
             (f"bp_batch_solve {Nb} x {Pb} x {Mb}",
              lambda: bp.bp_batch_solve(*bp_full), Mb),
             (glm_large,
@@ -805,8 +820,9 @@ def main() -> int:
               f"{cuda_median_ms(torch, call, reps=reps):.3f} ms"
               f"{' (median of 3)' if reps == 3 else ''}")
 
-    # Stage breakdown of one LAD fit, one batched BP solve and one logistic
-    # fit: what the entry points do, stage by stage, on the host clock.
+    # Stage breakdown of one scan-mode Lasso path, one wide fit, one LAD fit,
+    # one batched BP solve and one logistic fit: what the entry points do,
+    # stage by stage, on the host clock.
     print("phase: stages (host clock to a synchronize, median of 5 after a "
           "warm-up)", flush=True)
 
@@ -817,6 +833,49 @@ def main() -> int:
             total += ms
             print(f"  {title} | {name}: {ms:.3f} ms")
         print(f"  {title} | sum: {total:.3f} ms")
+
+    def lasso_stages(title, Xn, yn, ratio, setup, solve, finish):
+        """The stages of ``lasso_path`` on (Xn, yn): ``setup`` and ``solve``
+        are the regime's, ``finish`` what the entry point does with the
+        recovered path."""
+        def grid(a):
+            Xs, ys, st = a
+            lams = _auto_lambdas(Xs, ys, st, 100, ratio, 1.0, False)
+            return Xs, ys, st, lams, lams * Xs.shape[0] / st.scale_y
+        stages(title, [
+            ("numpy -> device copy of X, y",
+             lambda _: (torch.as_tensor(Xn, **f32), torch.as_tensor(yn, **f32))),
+            ("standardize",
+             lambda a: standardize(a[0], a[1], standardize_x=True,
+                                   intercept=True)),
+            ("lambda grid", grid),
+            setup, solve,
+            ("recover" + finish[0],
+             lambda a: finish[1](a[3], *recover(a[2], a[5], standardize_x=True,
+                                                intercept=True), a[6])),
+        ])
+
+    lasso_stages(
+        f"lasso_path {X.shape[0]} x {P} x {K} (scan)", X, y, 1e-4,
+        ("Gram, X'y, power iteration, ridge inverse (_tall_setup)",
+         lambda a: (*a, _tall_setup(a[0], a[1], a[4][0], -1.0))),
+        ("tall_path_scan kernel (with the transposed copy of Minv)",
+         lambda a: (*a[:5], *tall_path.tall_path_scan(
+             a[5][0].contiguous(), a[5][1].contiguous(), a[4].contiguous(),
+             a[5][2], EPS, EPS, 1.0, MAXIT))),
+        (", on the card", lambda lams, beta0, coef, niter: (beta0, coef)))
+    lasso_stages(
+        f"admm_lasso().fit() {Nw} x {Pw} x {K} (wide batch)", Xw, yw, 1e-2,
+        ("X'y, power iteration on XX', per-lane rho (_wide_setup)",
+         lambda a: (*a, _wide_setup(a[0], a[1], a[4], -1.0, 1.0, False))),
+        ("wide_path_batch kernel (with the padded and transposed copies)",
+         lambda a: (*a[:5], *wide_path.wide_path_batch(
+             a[0].contiguous(), a[1].contiguous(), a[4].contiguous(),
+             a[5][2].contiguous(), a[5][1], a[5][0], EPS, EPS, 1.0, MAXIT))),
+        (", sparse beta on the host",
+         lambda lams, beta0, coef, niter: (
+             lams.cpu().numpy(), _sparse_beta(beta0, coef),
+             niter.cpu().numpy())))
 
     def lad_recover(a):
         Xa, ys, stats, Ginv, _, ay, az = a

@@ -522,7 +522,8 @@ def test_check_cuda_input_rules():
 
 
 # ---------------------------------------------------------------------------
-# The launch plan of the cooperative-grid kernels (GLM, BP)
+# The launch plan of the cooperative-grid kernels (GLM, BP; the tall scan
+# and the wide batch kernel at the end of the file)
 # ---------------------------------------------------------------------------
 
 PLAN_SHAPES = [  # (rows n, columns q or p, lanes)
@@ -627,3 +628,106 @@ def test_padded_rows_and_row_tile():
     assert kcommon.row_tile(1001, 131, 132) == (993, 1001)
     assert kcommon.lane_groups(130) == [(0, 128), (128, 130)]
     assert kcommon.lane_groups(1) == [(0, 1)]
+
+
+# ---------------------------------------------------------------------------
+# The launch plans of the tall scan and wide batch kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("n,p,k", PLAN_SHAPES)
+def test_tall_scan_launch_plan(n, p, k, sms):
+    """One lane over the grid: at most one block per SM, no more blocks
+    than one warp per coordinate needs and no more than a block has threads
+    (thread b adds block b's sums); every column of ``z_out`` has exactly
+    one owner; Minv' gets a leading dimension that is a multiple of four;
+    a block holds the right-hand side as ``ldp`` float64s and five rows of
+    p floats, which fits whatever ``fits`` admits; z_new, y_new and the
+    partial sums are double-buffered."""
+    plan = tall_path.launch_plan(p, sms)
+    grid = plan["grid"]
+    assert 1 <= grid <= min(sms, 256) and plan["threads"] == 256
+    assert grid == min(sms, -(-p // 8)) == len(plan["col_tiles"])
+    _covers_once(plan["col_tiles"], p)
+    assert plan["ldp"] % 4 == 0 and p <= plan["ldp"] < p + 4
+    assert plan["smem_bytes"] == 4 * (2 * plan["ldp"] + 5 * p)
+    assert not tall_path.fits(p) or plan["smem_bytes"] <= 232448 - 2048
+    assert plan["exchange_floats"] == 2 * p
+    assert plan["partial_doubles"] == 2 * grid * 6
+
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("n,p,k", PLAN_SHAPES)
+def test_wide_launch_plan(n, p, k, sms):
+    """As for the GLM and BP kernels: one block per SM; every row of X and
+    every row of X' has exactly one owner; leading dimensions are multiples
+    of four; scratch holds x (k ldp) and Ax, z, y, tmp (k ldn each) for the
+    lanes of one launch, the partial sums lanes x 5 x grid doubles; lanes
+    go in groups of at most 128."""
+    plan = wide_path.launch_plan(n, p, k, sms)
+    assert plan["grid"] == sms == len(plan["n_tiles"]) == len(plan["p_tiles"])
+    assert plan["threads"] == 256
+    _covers_once(plan["n_tiles"], n)
+    sizes = _covers_once(plan["p_tiles"], p)
+    assert max(sizes) == -(-p // sms)
+    assert plan["ldp"] % 4 == 0 and p <= plan["ldp"] < p + 4
+    assert plan["ldn"] % 4 == 0 and n <= plan["ldn"] < n + 4
+    groups = plan["lane_groups"]
+    assert groups[0][0] == 0 and groups[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    lanes = max(hi - lo for lo, hi in groups)
+    assert lanes == min(k, 128)
+    assert plan["scratch_floats"] == lanes * (plan["ldp"] + 4 * plan["ldn"])
+    assert plan["partial_doubles"] == sms * lanes * 5
+    assert plan["smem_bytes"] == (64 + 128) * 33 * 16 <= 232448
+
+
+def test_scan_and_wide_plans_at_the_main_path_shapes():
+    """The numbers the kernels' notes quote: at p = 1000 the scan takes 125
+    blocks, one coordinate per warp, 28000 bytes of shared memory and one
+    sync per iteration; at 1000 x 2000 x 100 the wide kernel gives a block
+    7 or 8 rows of X and 15 or 16 of X', 2.4 MB of lane state and three
+    syncs per iteration.  ``fits`` is what it was."""
+    t = tall_path.launch_plan(1000, 132)
+    assert t["grid"] == 125 and t["grid"] * 8 == 1000
+    assert {hi - lo for lo, hi in t["col_tiles"]} == {8}
+    assert t["smem_bytes"] == 28000 and t["ldp"] == 1000
+    assert tall_path.SCAN_SYNCS_PER_ITERATION == 1
+    # The widest problem ``fits`` admits: a whole grid, one block's memory.
+    big = tall_path.launch_plan(tall_path.MAX_P, 132)
+    assert big["grid"] == 132 and big["smem_bytes"] == 7 * 4 * 7200
+    assert tall_path.launch_plan(5, 132)["grid"] == 1
+    assert tall_path.launch_plan(1001, 132)["ldp"] == 1004
+    w = wide_path.launch_plan(1000, 2000, 100, 132)
+    assert {hi - lo for lo, hi in w["n_tiles"]} == {7, 8}
+    assert {hi - lo for lo, hi in w["p_tiles"]} == {15, 16}
+    assert w["scratch_floats"] * 4 == 100 * (2000 + 4 * 1000) * 4 == 2_400_000
+    assert w["lane_groups"] == [(0, 100)]
+    assert wide_path.launch_plan(61, 163, 130, 132)["lane_groups"] == [
+        (0, 128), (128, 130)]
+    assert wide_path.SYNCS_PER_ITERATION == 3
+    assert tall_path.MAX_P == 7200 and wide_path._SMEM_FLOATS == 57600
+    assert wide_path.fits(1000, 17533) and not wide_path.fits(1000, 17534)
+    assert wide_path.fits(11519, 1) and not wide_path.fits(11519, 2)
+    assert not wide_path.fits(0, 10) and not wide_path.fits(10, 0)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.6])
+def test_wide_wrapper_one_lane_runs_plain_form_on_cpu(wide_inputs, alpha):
+    """k = 1 goes the same way as a batch: on CPU tensors the wrapper
+    returns its plain form's result, counts no launch, and one lane alone
+    stops where its lane of the batch stops (within 1: the CPU's float64
+    product of one row and of nine rows sum in different orders)."""
+    _, args = _pallas_wide(wide_inputs, alpha)
+    Xs, ys, ilams, rho, sprad, lambda0 = args
+    kernels.reset_launch_counts()
+    tail = (sprad, lambda0, 1e-5, 1e-5, alpha, MAXIT)
+    x, niter = wide_path.wide_path_batch(Xs, ys, ilams, rho, *tail)
+    one = (Xs, ys, ilams[4:5], rho[4:5])
+    x1, n1 = wide_path.wide_path_batch(*one, *tail)
+    xr, nr = wide_path.wide_path_batch_reference(*one, *tail)
+    assert torch.equal(x1, xr) and torch.equal(n1, nr)
+    assert x1.shape == (1, wide_inputs["p"])
+    assert float((x1[0] - x[4]).abs().max()) <= 1e-5
+    assert abs(int(n1[0]) - int(niter[4])) <= 1
+    assert kernels.launch_counts()["wide_path_batch"] == 0

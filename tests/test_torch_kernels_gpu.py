@@ -504,3 +504,212 @@ def test_two_launches_give_identical_bits(dev, bp_args):
     torch.cuda.synchronize()
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# The cooperative-grid design of the tall scan and wide batch kernels: the
+# scan's one lane is split over the grid's warps with the loop over lambda
+# inside the kernel; the wide kernel runs every lambda in every block.
+# ---------------------------------------------------------------------------
+
+def _tall_problem(dev, n, p, k, above=1.0):
+    """Minv, X'y, a lambda grid from ``above * lambda0`` down, and rho."""
+    rng = np.random.default_rng(n + p + k)
+    X = rng.normal(size=(n, p))
+    b = rng.uniform(size=p) * (rng.uniform(size=p) < 0.4)
+    Xs, ys = _std(X, 1.0 + X @ b + 0.3 * rng.normal(size=n), dev)
+    lam0 = float(torch.max(torch.abs(Xs.mT @ ys)))
+    ilams = torch.tensor(np.geomspace(lam0 * above, lam0 * 1e-3, k),
+                         dtype=torch.float32, device=dev)
+    Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], -1.0)
+    return Minv.contiguous(), Xty.contiguous(), ilams, rho
+
+
+def _wide_problem(dev, n, p, k, alpha=1.0, above=1.1):
+    rng = np.random.default_rng(n + p + k)
+    X = rng.normal(size=(n, p))
+    b = np.zeros(p)
+    b[:max(1, p // 12)] = rng.normal(size=max(1, p // 12))
+    Xs, ys = _std(X, X @ b + 0.2 * rng.normal(size=n), dev)
+    lam0 = float(torch.max(torch.abs(Xs.mT @ ys)))
+    ilams = torch.tensor(np.geomspace(lam0 * above, lam0 * 1e-2, k),
+                         dtype=torch.float32, device=dev)
+    lambda0, sprad, rho = _wide_setup(Xs, ys, ilams, -1.0, alpha, False)
+    return (Xs.contiguous(), ys.contiguous(), ilams,
+            torch.broadcast_to(rho, (k,)).contiguous(), sprad, lambda0)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.6])
+@pytest.mark.parametrize("n,p,k", [(30, 5, 4), (90, 37, 12), (400, 203, 20),
+                                   (2500, 1030, 6)])
+def test_tall_scan_kernel_ragged_shapes(dev, n, p, k, alpha):
+    """p that is no multiple of four (a padded leading dimension of the
+    transposed Minv), fewer coordinates than one block has warps (p = 5:
+    a grid of one block), a grid narrower than the card (p = 37, 203) and
+    several coordinates per warp (p = 1030), on a lambda grid that starts
+    above lambda0.  niter must equal the plain form's at every lambda: the
+    warm start of each lambda depends on where the last one stopped."""
+    args = (*_tall_problem(dev, n, p, k, above=1.2), 1e-5, 1e-5, alpha, MAXIT)
+    before = kernels.launch_counts()["tall_path_scan"]
+    z, niter = tall_path.tall_path_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["tall_path_scan"] == before + 1
+    z_ref, n_ref = tall_path.tall_path_scan_reference(*args)
+    assert z.shape == (k, p) and niter.dtype == torch.int32
+    assert torch.equal(z[0] == 0, z_ref[0] == 0)
+    assert float(z[-1].abs().max()) > 0.0
+    assert float((z - z_ref).abs().max()) <= 1e-5
+    assert niter.tolist() == n_ref.tolist()
+    assert int(niter.max()) < MAXIT
+
+
+@pytest.mark.parametrize("maxit", [1, 2, 7])
+def test_tall_scan_kernel_lambdas_that_stop_at_maxit(tall_args, maxit):
+    """Lambdas that run out of iterations report ``maxit``, the state
+    carries over as in the plain form, and with an odd ``maxit`` the
+    last iteration of one lambda and the first of the next would share the
+    parity of a per-lambda count (the exchange buffers go by a count over
+    the whole path)."""
+    args = (*tall_args, 1e-9, 1e-9, 0.6, maxit)
+    z, niter = tall_path.tall_path_scan(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = tall_path.tall_path_scan_reference(*args)
+    assert niter.tolist() == n_ref.tolist() and int(niter.max()) == maxit
+    assert float((z - z_ref).abs().max()) <= 1e-5
+
+
+def test_tall_scan_kernel_one_lambda_equals_the_batch_kernel(tall_args):
+    """From a cold start one lambda of the scan is one lane of the batch
+    kernel: the same coefficients within 1e-5 and niter within 1."""
+    Minv, Xty, ilams, rho = tall_args
+    args = (Minv, Xty, ilams[4:5].contiguous(), rho, 1e-5, 1e-5, 1.0, MAXIT)
+    z, niter = tall_path.tall_path_scan(*args)
+    zb, nb = tall_path.tall_path_batch(*args)
+    torch.cuda.synchronize()
+    assert float((z - zb).abs().max()) <= 1e-5
+    assert abs(int(niter[0]) - int(nb[0])) <= 1
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.6])
+@pytest.mark.parametrize("n,p,k", [(5, 9, 3), (61, 163, 1), (61, 163, 2),
+                                   (61, 163, 37), (61, 163, 130),
+                                   (203, 1030, 9)])
+def test_wide_kernel_ragged_shapes_and_lane_counts(dev, n, p, k, alpha):
+    """n and p that are no multiples of four, fewer rows than the grid has
+    blocks, one lane, fewer lanes than one register tile, a ragged number of
+    tiles and more lanes than one launch takes (128: two launches); the
+    first lambda is above lambda0 and stays exactly 0."""
+    args = (*_wide_problem(dev, n, p, k, alpha), 1e-5, 1e-5, alpha, MAXIT)
+    before = kernels.launch_counts()["wide_path_batch"]
+    x, niter = wide_path.wide_path_batch(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wide_path_batch"] == before + len(
+        wide_path.launch_plan(n, p, k, 132)["lane_groups"])
+    x_ref, n_ref = wide_path.wide_path_batch_reference(*args)
+    assert x.shape == (k, p) and niter.dtype == torch.int32
+    assert float(x[0].abs().max()) == 0.0
+    assert k == 1 or float(x[-1].abs().max()) > 0.0
+    assert float((x - x_ref).abs().max()) <= 1e-5
+    assert int((niter - n_ref).abs().max()) <= 1
+    assert int(niter.max()) < MAXIT
+
+
+def test_wide_kernel_lane_at_maxit(wide_args):
+    """Lanes that run out of iterations report ``maxit`` and the state
+    they reached, as the plain form does; the lane above lambda0 converges
+    before that with x = 0."""
+    args = (*wide_args, 1e-7, 1e-7, 1.0, 9)
+    x, niter = wide_path.wide_path_batch(*args)
+    torch.cuda.synchronize()
+    x_ref, n_ref = wide_path.wide_path_batch_reference(*args)
+    assert niter.tolist() == n_ref.tolist() and int(niter.max()) == 9
+    assert float((x - x_ref).abs().max()) <= 1e-5
+
+
+def test_wide_lanes_that_finish_apart_equal_each_lane_alone(wide_args):
+    """Nine lanes converge at different iterations, each with its own rho;
+    each must come out as if it had run alone (k = 1), to the bit."""
+    Xs, ys, ilams, rhos, sprad, lambda0 = wide_args
+    tail = (sprad, lambda0, 1e-5, 1e-5, 1.0, MAXIT)
+    x, niter = wide_path.wide_path_batch(Xs, ys, ilams, rhos, *tail)
+    torch.cuda.synchronize()
+    assert len(set(niter.tolist())) > 1 and int(niter.max()) < MAXIT
+    for i in range(ilams.shape[0]):
+        x1, n1 = wide_path.wide_path_batch(Xs, ys, ilams[i:i + 1].contiguous(),
+                                           rhos[i:i + 1].contiguous(), *tail)
+        assert int(n1[0]) == int(niter[i]) and torch.equal(x1[0], x[i])
+
+
+def test_wide_kernel_walks_the_rho_ladder_per_lane(wide_args):
+    """With the ladder held for the whole solve (``rho_start_iter`` past
+    ``maxit``) the plain form needs other iteration counts than with the
+    ladder on: the ladder moves rho on this problem.  The kernel follows
+    the plain form lane by lane both ways."""
+    args = (*wide_args, 1e-5, 1e-5, 1.0, MAXIT)
+    _, n_on = wide_path.wide_path_batch_reference(*args)
+    _, n_held = wide_path.wide_path_batch_reference(*args,
+                                                    rho_start_iter=MAXIT)
+    assert n_on.tolist() != n_held.tolist()
+    for kw, n_ref in ((dict(), n_on), (dict(rho_start_iter=MAXIT), n_held)):
+        x, niter = wide_path.wide_path_batch(*args, **kw)
+        x_ref, _ = wide_path.wide_path_batch_reference(*args, **kw)
+        assert niter.tolist() == n_ref.tolist()
+        assert float((x - x_ref).abs().max()) <= 1e-5
+
+
+def test_scan_and_wide_launches_give_identical_bits(tall_args, wide_args):
+    """No atomics and sums in a fixed order: the same inputs give the same
+    bits and the same niter twice, for both kernels."""
+    runs = [tall_path.tall_path_scan(*tall_args, 1e-5, 1e-5, 0.6, MAXIT)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    runs = [wide_path.wide_path_batch(*wide_args, 1e-5, 1e-5, 0.6, MAXIT)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_tall_scan_kernel_largest_p(dev):
+    """p = MAX_P is the most ``fits`` admits (the batch kernel's 8p floats
+    of shared memory; the scan kernel's blocks hold 7p) and Minv (207 MB)
+    is past the L2; p + 1 is refused.  Three iterations at each of two
+    lambdas: z within 1e-5 of the plain form's."""
+    p = tall_path.MAX_P
+    assert tall_path.fits(p) and not tall_path.fits(p + 1)
+    Minv, Xty, ilams, rho = _tall_problem(dev, 300, p, 2, above=0.5)
+    args = (Minv, Xty, ilams, rho, 1e-9, 1e-9, 1.0, 3)
+    z, niter = tall_path.tall_path_scan(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = tall_path.tall_path_scan_reference(*args)
+    assert niter.tolist() == n_ref.tolist() == [3, 3]
+    assert float(z.abs().max()) > 0.0
+    assert float((z - z_ref).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="tall path kernels take"):
+        tall_path.tall_path_scan(torch.zeros((p + 1, p + 1), device=dev),
+                                 torch.zeros((p + 1,), device=dev), ilams,
+                                 rho, 1e-9, 1e-9, 1.0, 3)
+
+
+def test_wide_kernel_largest_shape(dev):
+    """n = 400, p = 18533 is the widest design the dispatch bound of
+    ``fits`` admits at that n (3p + 5n <= 57600); p + 1 is past it and the
+    wrapper refuses it.  Three iterations of two lanes: x within 1e-5 of
+    the plain form's."""
+    n, p = 400, 18533
+    assert wide_path.fits(n, p) and not wide_path.fits(n, p + 1)
+    Xs, ys, ilams, rhos, sprad, lambda0 = _wide_problem(dev, n, p, 2,
+                                                        above=0.5)
+    args = (Xs, ys, ilams, rhos, sprad, lambda0, 1e-9, 1e-9, 1.0, 3)
+    x, niter = wide_path.wide_path_batch(*args)
+    torch.cuda.synchronize()
+    x_ref, n_ref = wide_path.wide_path_batch_reference(*args)
+    assert niter.tolist() == n_ref.tolist() == [3, 3]
+    assert float(x.abs().max()) > 0.0
+    assert float((x - x_ref).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="wide path kernel takes"):
+        wide_path.wide_path_batch(torch.zeros((n, p + 1), device=dev), ys,
+                                  ilams, rhos, sprad, lambda0, 1e-9, 1e-9,
+                                  1.0, 3)
