@@ -76,6 +76,7 @@ class ADMMLassoFit:
         self.lambda_ = np.asarray(lambda_)
         self.beta = beta
         self.niter = np.asarray(niter)
+        self.trace = None  # the traced solves are not ported yet
 
     def __repr__(self):
         return (f"{type(self).__name__}(lambda_={self.lambda_!r}, "
@@ -98,6 +99,7 @@ class ADMMLADFit:
     def __init__(self, beta, niter):
         self.beta = np.asarray(beta)
         self.niter = int(niter)
+        self.trace = None
 
     def __repr__(self):
         return f"{type(self).__name__}(niter={self.niter!r})"
@@ -117,6 +119,7 @@ class ADMMBPFit:
 
         self.beta = sparse.csc_matrix(np.asarray(beta)[:, None])
         self.niter = int(niter)
+        self.trace = None
 
     def __repr__(self):
         return f"{type(self).__name__}(niter={self.niter!r})"
@@ -200,8 +203,11 @@ class ADMMLasso:
              rho: Optional[float] = None, path_mode: str = "batch",
              trace=False, **kw):
         """(reference: R/30_admm_lasso.R:115-133).  ``path_mode``:
-        "batch" (default) or "scan"; "activeset" and ``trace`` are not
-        ported yet and raise."""
+        "batch" (default), "scan" or "activeset", which ``fit()`` hands to
+        ``lasso_path`` (it raises there: ``ValueError`` where the JAX
+        package refuses the mode, ``NotImplementedError`` otherwise, the
+        active-set solver not being ported yet); ``trace`` is not ported
+        yet and raises."""
         if maxit <= 0:
             raise ValueError("maxit should be positive")
         eps_abs = self._eps_default if eps_abs is None else eps_abs
@@ -213,9 +219,6 @@ class ADMMLasso:
         if path_mode not in ("batch", "scan", "activeset"):
             raise ValueError(
                 "path_mode must be 'batch', 'scan' or 'activeset'")
-        if path_mode == "activeset":
-            raise NotImplementedError(
-                "path_mode='activeset' is not ported to admm_tpu_torch yet")
         if trace is not False:
             raise NotImplementedError(
                 "trace is not ported to admm_tpu_torch yet")

@@ -1,8 +1,8 @@
 // Device helpers shared by the path kernels: the proximal operators, the
 // GLM families' gradients, the FADMM momentum/restart rule, a block-wide
 // sum of a few scalars, and the tall-skinny product of a matrix tile with
-// every active lane's vector (lanes_product) that the GLM, BP and wide
-// Lasso kernels are built on.
+// every active lane's vector (lanes_product) that the GLM, BP and the wide
+// and tall batch Lasso kernels are built on.
 //
 // Counterparts of admm_tpu/ops/_common.py (soft_threshold, enet_prox,
 // fadmm_momentum), of the prox and family gradients inside
@@ -133,34 +133,6 @@ __device__ __forceinline__ void block_sum(double (&v)[N], double* scratch) {
   for (int k = 0; k < N; ++k) v[k] = scratch[kWarp * N + k];
   // The next call writes only rows [0, 32) before its first barrier,
   // and every thread has read the totals here before reaching it.
-}
-
-// sum_i v[i] * col[i * stride], rounded once to float32, for a float64
-// vector v in shared memory (converted once per iteration by the caller)
-// and one column of a row-major float32 matrix in global memory, read
-// through L2.  The products are exact in float64; eight independent
-// partial sums keep several loads in flight.  The one float32 -> float64
-// conversion per matrix element is what bounds the loop (16 per clock per
-// SM on sm_90), not the float64 FMAs.
-__device__ __forceinline__ float column_dot(const double* v, const float* col,
-                                            int n, int stride) {
-  double acc[8] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  int i = 0;
-  for (; i + 8 <= n; i += 8) {
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      acc[u] = fma(v[i + u],
-                   static_cast<double>(
-                       __ldg(col + static_cast<size_t>(i + u) * stride)),
-                   acc[u]);
-  }
-  for (; i < n; ++i)
-    acc[0] = fma(v[i],
-                 static_cast<double>(
-                     __ldg(col + static_cast<size_t>(i) * stride)),
-                 acc[0]);
-  return static_cast<float>(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-                            ((acc[4] + acc[5]) + (acc[6] + acc[7])));
 }
 
 // sum_i row[i] * v[i] over one warp's lanes (the caller reduces the lanes

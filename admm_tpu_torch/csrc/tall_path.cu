@@ -16,14 +16,37 @@
 // every norm.  The whole loop runs on the device with no host sync.
 //
 // Batch kernel.  The lambda lanes never interact: the Pallas kernel's
-// all-done exit only stops lanes that are already frozen.  So one thread
-// block runs one lane, each with its own `for (it < maxit && !done)` loop,
-// and gives the same per-lane niter with no grid-wide sync.  Lane state
-// (z, y, adj_z, adj_y, two scratch rows, and the x-update's right-hand
-// side as float64: 8p floats, 32 KB at p = 1000) lives in shared memory.
-// It reads all of Minv (4 MB at p = 1000) from L2 per lane and iteration
-// and converts each element to float64 once (16 conversions per clock per
-// SM); sharing each Minv read among a group of lanes is later work.
+// all-done exit only stops lanes that are already frozen.  The first
+// version gave one block one lane: every lane read all of Minv (4 MB at
+// p = 1000) from L2 every iteration and converted each element to float64
+// once per lane, 100 lanes sharing the L2's bandwidth (2.6 ms for 100
+// lambdas; NVIDIA H100 80GB HBM3, 700 W).  Now, as in wide_path.cu:
+//   * one persistent cooperative grid, one block per SM, runs every lane;
+//     lane state (the right-hand side rhs, x_new, z_new, y_new, z, y,
+//     adj_z, adj_y: (k, ldp) floats each) lives in a float32 scratch
+//     buffer in device memory that the wrapper allocates zeroed;
+//   * the x-update of every ACTIVE lane is one tall-skinny product,
+//     x_new[lane, j] = sum_i rhs[lane, i] Minv[i, j], taken by rows of a
+//     transposed copy of Minv (admm::lanes_product with M = Minv'; Minv
+//     is symmetric only up to rounding and the plain form reads its
+//     columns), the coordinates split over the blocks: one load and one
+//     float64 conversion of an element of Minv serves every lane;
+//   * on its own coordinates a block then does the elastic-net prox and
+//     the y-update and writes six partial sums of squares per lane,
+//     sum-major, a group of a warp's lanes per lane; after a grid sync
+//     every block adds the partials in the same order (grid_totals_by_sum)
+//     and reaches the same stopping, restart and momentum decisions per
+//     lane; it brings its coordinates up to date, forms the next
+//     right-hand side there, and drops converged lanes from a compacted
+//     list of active lanes, the same in every block; a second grid sync
+//     lets the next product read every block's right-hand side.
+// Two grid syncs per iteration: the momentum step needs the totals, and
+// the next product needs every coordinate of the right-hand side.  No
+// atomics: two launches give the same bits.  A lane that has converged
+// leaves the list with its z and niter final, as the plain form freezes
+// it.  What bounds it on this card: float64 multiply-adds, p^2 per
+// lane-iteration on the vector units, and, as lanes drop out, the two grid
+// syncs and one chunk's L2 latency per iteration.
 //
 // Scan kernel.  There is one lane, and one block reading all of Minv every
 // iteration is bound by the bytes one SM keeps in flight (77 us per
@@ -65,137 +88,213 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kTallSums = 6;
 
-// Shared-memory rows and carried scalars of one lane.
-struct TallLane {
-  double* rhs64;  // x-update right-hand side, float64 (exact copy)
+constexpr int kBatchThreads = admm::kGemmThreads;
+constexpr int kBatchWarps = kBatchThreads / admm::kWarp;
+
+struct BatchParams {
+  const float* minvT;  // (p, ldp) row-major: the transpose of Minv
+  const float* xty;    // (p,)
+  const float* lam;    // (k,)
+  float* rhs;          // (k, ldp) each, zero at launch; X'y - adj_y + rho adj_z
+  float* xn;           // x_new
+  float* zn;           // z_new
+  float* yn;           // y_new
   float* z;
   float* y;
   float* adj_z;
   float* adj_y;
-  float* zs;   // z_new
-  float* xn;   // x_new, then y_new
-  float nx2, nz2, ny2;  // squared norms of the current x, z, y
-  admm::Momentum mom;
-};
-
-struct TallParams {
-  const float* minv;  // (p, p) row-major
-  const float* xty;   // (p,)
-  int p;
+  double* partial;     // (k, kTallSums, blocks)
+  float* z_out;        // (k, p)
+  int* niter_out;      // (k,)
+  int p, ldp, k, maxit;
   float rho, eps_abs, eps_rel, alpha, restart_tol, sqrt_p;
 };
 
-// Dynamic shared memory: p doubles, then six rows of p floats.
-__device__ void tall_lane_init(TallLane& L, float* smem, int p) {
-  L.rhs64 = reinterpret_cast<double*>(smem);
-  float* f = smem + 2 * p;
-  L.z = f;
-  L.y = f + p;
-  L.adj_z = f + 2 * p;
-  L.adj_y = f + 3 * p;
-  L.zs = f + 4 * p;
-  L.xn = f + 5 * p;
-  for (int j = threadIdx.x; j < 8 * p; j += blockDim.x) smem[j] = 0.0f;
-  L.nx2 = L.nz2 = L.ny2 = 0.0f;
-  L.mom.a = 1.0f;
-  L.mom.c = 9999.0f;
-  __syncthreads();
-}
+struct StoreProduct {
+  float* out;
+  int ld;
+  __device__ void operator()(int j, int lane, float acc) const {
+    out[static_cast<size_t>(lane) * ld + j] = acc;
+  }
+};
 
-// One FADMM iteration of one lane; returns the Boyd test's verdict.  The
-// verdict comes from block-reduced values, so it is the same in every
-// thread and the caller's loop stays uniform.
-__device__ bool tall_iteration(const TallParams& P, TallLane& L, float lam,
-                               double* red) {
-  const int p = P.p;
+__global__ void __launch_bounds__(kBatchThreads, 1)
+tall_path_batch_kernel(const __grid_constant__ BatchParams P) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ double2 product_smem[];
+  __shared__ int act[admm::kMaxLanes];  // the active lanes, ascending
+  __shared__ int lane_done[admm::kMaxLanes];  // by position in act
+  __shared__ int accel_s[admm::kMaxLanes];    // by lane from here on
+  __shared__ float ratio_s[admm::kMaxLanes];
+  __shared__ float mom_a[admm::kMaxLanes];
+  __shared__ float mom_c[admm::kMaxLanes];
+  __shared__ float nx2[admm::kMaxLanes];  // pre-update squared norms
+  __shared__ float nz2[admm::kMaxLanes];
+  __shared__ float ny2[admm::kMaxLanes];
+  __shared__ int nact_s;
+  const int p = P.p, k = P.k, ldp = P.ldp;
   const float rho = P.rho;
-  const float eps_pri =
-      fmaxf(sqrtf(L.nx2), sqrtf(L.nz2)) * P.eps_rel + P.sqrt_p * P.eps_abs;
-  const float eps_dua = sqrtf(L.ny2) * P.eps_rel + P.sqrt_p * P.eps_abs;
-
-  for (int j = threadIdx.x; j < p; j += blockDim.x)
-    L.rhs64[j] =
-        static_cast<double>(P.xty[j] - L.adj_y[j] + rho * L.adj_z[j]);
-  __syncthreads();
-
-  // x_new[j] = sum_i rhs[i] Minv[i, j]: a warp reads 32 neighbouring
-  // columns of one row, so each load of Minv is coalesced.
-  for (int j = threadIdx.x; j < p; j += blockDim.x)
-    L.xn[j] = admm::column_dot(L.rhs64, P.minv + j, p, p);
-  __syncthreads();
-
-  const float pen = lam / rho;
-  double s[kTallSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int j = threadIdx.x; j < p; j += blockDim.x) {
-    const float xn = L.xn[j];
-    const float ay = L.adj_y[j];
-    const float zn = admm::enet_prox(xn + ay / rho, pen, P.alpha);
-    const float r = xn - zn;
-    const float yn = ay + rho * r;
-    const float dz = zn - L.z[j];
-    const float ez = zn - L.adj_z[j];
-    s[0] += static_cast<double>(dz * dz);  // ||z_new - z||^2: dual residual
-    s[1] += static_cast<double>(r * r);    // ||x_new - z_new||^2: primal
-    s[2] += static_cast<double>(ez * ez);  // ||z_new - adj_z||^2: combined
-    s[3] += static_cast<double>(xn * xn);  // next iteration's ||x||^2
-    s[4] += static_cast<double>(zn * zn);  // next iteration's ||z||^2
-    s[5] += static_cast<double>(yn * yn);  // next iteration's ||y||^2
-    L.zs[j] = zn;
-    L.xn[j] = yn;
+  const int tid = threadIdx.x;
+  const int warp = tid / admm::kWarp, wlane = tid % admm::kWarp;
+  const int nblocks = gridDim.x;
+  int p_lo, p_hi;  // this block's coordinates: rows of Minv'
+  admm::row_tile(p, blockIdx.x, nblocks, &p_lo, &p_hi);
+  const int mine = p_hi - p_lo;
+  // The elementwise stages give a lane's coordinates of this block (p /
+  // blocks: 7 or 8 at p = 1000) to a group of a warp's lanes, the smallest
+  // power of two that holds them, at least 8 (as in wide_path.cu).
+  int group = 8;
+  while (group < mine && group < admm::kWarp) group *= 2;
+  const int per_warp = admm::kWarp / group;
+  const int sub = wlane / group, g = wlane % group;
+  for (int l = tid; l < k; l += kBatchThreads) {
+    act[l] = l;
+    mom_a[l] = 1.0f;
+    mom_c[l] = 9999.0f;
+    nx2[l] = nz2[l] = ny2[l] = 0.0f;
   }
-  admm::block_sum<kTallSums>(s, red);
-
-  const float r_dua = rho * sqrtf(static_cast<float>(s[0]));
-  const float r_pri = sqrtf(static_cast<float>(s[1]));
-  const bool done = r_pri < eps_pri && r_dua < eps_dua;
-  const admm::MomentumStep m = admm::fadmm_momentum(
-      L.mom, rho, r_pri, static_cast<float>(s[2]), P.restart_tol);
-  for (int j = threadIdx.x; j < p; j += blockDim.x) {
-    const float zn = L.zs[j];
-    const float yn = L.xn[j];
-    if (!done) {
-      L.adj_z[j] = m.accel ? (1.0f + m.ratio) * zn - m.ratio * L.z[j]
-                           : L.z[j];
-      L.adj_y[j] = m.accel ? (1.0f + m.ratio) * yn - m.ratio * L.y[j]
-                           : L.y[j];
-    }
-    L.z[j] = zn;
-    L.y[j] = yn;
+  // The cold start's right-hand side, X'y - 0 + rho 0, on this block's
+  // coordinates.
+  for (int o = tid; o < mine * k; o += kBatchThreads) {
+    const int lane = o / mine, j = p_lo + o % mine;
+    P.rhs[static_cast<size_t>(lane) * ldp + j] = P.xty[j] - 0.0f + rho * 0.0f;
   }
-  if (!done) {
-    L.mom.a = m.a_new;
-    L.mom.c = m.c_new;
-  }
-  L.nx2 = static_cast<float>(s[3]);
-  L.nz2 = static_cast<float>(s[4]);
-  L.ny2 = static_cast<float>(s[5]);
   __syncthreads();
-  return done;
-}
+  grid.sync();
+  int nact = k;
 
-// Batch: block b solves lambda lane b from a cold start.
-__global__ void __launch_bounds__(kThreads)
-tall_path_batch_kernel(TallParams P, const float* __restrict__ lam,
-                       float* __restrict__ z_out, int* __restrict__ niter_out,
-                       int maxit) {
-  extern __shared__ float smem[];
-  __shared__ double red[(admm::kWarp + 1) * kTallSums];
-  const int lane = blockIdx.x;
-  TallLane L;
-  tall_lane_init(L, smem, P.p);
-  const float lam_l = lam[lane];
+  // Every block computes nact and `it` from the same totals: all reach
+  // every grid sync the same number of times.
   int it = 0;
-  while (it < maxit) {
-    const bool done = tall_iteration(P, L, lam_l, red);
+  while (it < P.maxit && nact > 0) {
+    admm::lanes_product(P.minvT, ldp, p_lo, p_hi, p, P.rhs, ldp, act, nact,
+                        product_smem, StoreProduct{P.xn, ldp});
+
+    // This block's coordinates of every active lane: the prox, y and the
+    // six sums of squares.  A group of a warp's lanes per lane.
+    for (int li0 = warp * per_warp; li0 < nact;
+         li0 += kBatchWarps * per_warp) {
+      const int li = li0 + sub;
+      const bool live = li < nact;
+      const int lane = act[live ? li : 0];
+      const float pen = P.lam[lane] / rho;
+      double s[kTallSums] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int j = p_lo + g; live && j < p_hi; j += group) {
+        const size_t at = static_cast<size_t>(lane) * ldp + j;
+        const float xn = P.xn[at];
+        const float ay = P.adj_y[at];
+        const float zn = admm::enet_prox(xn + ay / rho, pen, P.alpha);
+        const float r = xn - zn;
+        const float yn = ay + rho * r;
+        const float dz = zn - P.z[at];
+        const float ez = zn - P.adj_z[at];
+        s[0] += static_cast<double>(dz * dz);  // ||z_new - z||^2: dual
+        s[1] += static_cast<double>(r * r);    // ||x_new - z_new||^2: primal
+        s[2] += static_cast<double>(ez * ez);  // ||z_new - adj_z||^2
+        s[3] += static_cast<double>(xn * xn);  // next iteration's ||x||^2
+        s[4] += static_cast<double>(zn * zn);  // next iteration's ||z||^2
+        s[5] += static_cast<double>(yn * yn);  // next iteration's ||y||^2
+        P.zn[at] = zn;
+        P.yn[at] = yn;
+      }
+#pragma unroll
+      for (int c = 0; c < kTallSums; ++c) s[c] = admm::group_sum(s[c], group);
+      if (live && g == 0) {
+        double* dst = P.partial +
+                      static_cast<size_t>(lane) * kTallSums * nblocks +
+                      blockIdx.x;
+#pragma unroll
+        for (int c = 0; c < kTallSums; ++c) dst[c * nblocks] = s[c];
+      }
+    }
+    grid.sync();
+
+    // Totals, the Boyd test and the momentum step, alike in every block.
+    for (int li = warp; li < nact; li += kBatchWarps) {
+      const int lane = act[li];
+      double s[kTallSums];
+      admm::grid_totals_by_sum<kTallSums>(
+          P.partial + static_cast<size_t>(lane) * kTallSums * nblocks,
+          nblocks, wlane, s);
+      if (wlane == 0) {
+        const float eps_pri =
+            fmaxf(sqrtf(nx2[lane]), sqrtf(nz2[lane])) * P.eps_rel +
+            P.sqrt_p * P.eps_abs;
+        const float eps_dua = sqrtf(ny2[lane]) * P.eps_rel +
+                              P.sqrt_p * P.eps_abs;
+        const float r_dua = rho * sqrtf(static_cast<float>(s[0]));
+        const float r_pri = sqrtf(static_cast<float>(s[1]));
+        const bool done = r_pri < eps_pri && r_dua < eps_dua;
+        admm::Momentum mom;
+        mom.a = mom_a[lane];
+        mom.c = mom_c[lane];
+        const admm::MomentumStep m = admm::fadmm_momentum(
+            mom, rho, r_pri, static_cast<float>(s[2]), P.restart_tol);
+        if (!done) {
+          mom_a[lane] = m.a_new;
+          mom_c[lane] = m.c_new;
+        }
+        lane_done[li] = done;
+        accel_s[lane] = m.accel;
+        ratio_s[lane] = m.ratio;
+        nx2[lane] = static_cast<float>(s[3]);
+        nz2[lane] = static_cast<float>(s[4]);
+        ny2[lane] = static_cast<float>(s[5]);
+      }
+    }
     ++it;
-    if (done) break;
+    __syncthreads();
+
+    // The refresh of this block's coordinates, and the next right-hand
+    // side in the same pass; a lane that is done keeps its adj_*.
+    for (int li = warp * per_warp + sub; li < nact;
+         li += kBatchWarps * per_warp) {
+      const int lane = act[li];
+      const bool done = lane_done[li];
+      const bool accel = accel_s[lane];
+      const float ratio = ratio_s[lane];
+      for (int j = p_lo + g; j < p_hi; j += group) {
+        const size_t at = static_cast<size_t>(lane) * ldp + j;
+        const float zn = P.zn[at], yn = P.yn[at];
+        const float zo = P.z[at], yo = P.y[at];
+        if (!done) {
+          const float az = accel ? (1.0f + ratio) * zn - ratio * zo : zo;
+          const float ay = accel ? (1.0f + ratio) * yn - ratio * yo : yo;
+          P.adj_z[at] = az;
+          P.adj_y[at] = ay;
+          P.rhs[at] = P.xty[j] - ay + rho * az;
+        }
+        P.z[at] = zn;
+        P.y[at] = yn;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {  // drop the lanes that are done; the order is kept
+      int kept = 0;
+      for (int li = 0; li < nact; ++li) {
+        const int lane = act[li];
+        if (lane_done[li]) {
+          if (blockIdx.x == 0) P.niter_out[lane] = it;
+        } else {
+          act[kept++] = lane;
+        }
+      }
+      nact_s = kept;
+    }
+    __syncthreads();
+    nact = nact_s;
+    grid.sync();  // the next product reads every block's right-hand side
   }
-  for (int j = threadIdx.x; j < P.p; j += blockDim.x)
-    z_out[static_cast<size_t>(lane) * P.p + j] = L.z[j];
-  if (threadIdx.x == 0) niter_out[lane] = it;
+  if (blockIdx.x == 0)  // lanes that ran out of iterations
+    for (int li = tid; li < nact; li += kBatchThreads)
+      P.niter_out[act[li]] = it;
+  for (int o = tid; o < mine * k; o += kBatchThreads) {
+    const int lane = o / mine, j = p_lo + o % mine;
+    P.z_out[static_cast<size_t>(lane) * p + j] =
+        P.z[static_cast<size_t>(lane) * ldp + j];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -354,43 +453,59 @@ tall_path_scan_kernel(const __grid_constant__ ScanParams P) {
   }
 }
 
-TallParams make_params(const float* minv, const float* xty, int p, float rho,
-                       float eps_abs, float eps_rel, float alpha,
-                       float restart_tol) {
-  TallParams P;
-  P.minv = minv;
+}  // namespace
+
+extern "C" {
+
+// minvT is the transpose of Minv, (p, ldp) with ldp a multiple of four and
+// the padding zero; `scratch` holds 8 k ldp floats, all zero; `partial`
+// k * 6 * blocks doubles; k <= 128 lanes; blocks from
+// kernels/tall_path.py::batch_launch_plan.  Returns the launch's error
+// (0 = launched); a grid the card cannot hold at once is refused
+// (cudaErrorCooperativeLaunchTooLarge), not run.
+int admm_tall_path_batch(const float* minvT, const float* xty,
+                         const float* lam, float* scratch, double* partial,
+                         float* z_out, int* niter_out, int p, int ldp, int k,
+                         int blocks, float rho, float eps_abs, float eps_rel,
+                         float alpha, int maxit, float restart_tol,
+                         void* stream) {
+  if (p <= 0 || k <= 0 || k > admm::kMaxLanes || blocks <= 0 || ldp < p ||
+      (ldp & 3))
+    return cudaErrorInvalidValue;
+  const size_t kp = static_cast<size_t>(k) * ldp;
+  BatchParams P;
+  P.minvT = minvT;
   P.xty = xty;
+  P.lam = lam;
+  P.rhs = scratch;
+  P.xn = scratch + kp;
+  P.zn = scratch + 2 * kp;
+  P.yn = scratch + 3 * kp;
+  P.z = scratch + 4 * kp;
+  P.y = scratch + 5 * kp;
+  P.adj_z = scratch + 6 * kp;
+  P.adj_y = scratch + 7 * kp;
+  P.partial = partial;
+  P.z_out = z_out;
+  P.niter_out = niter_out;
   P.p = p;
+  P.ldp = ldp;
+  P.k = k;
+  P.maxit = maxit;
   P.rho = rho;
   P.eps_abs = eps_abs;
   P.eps_rel = eps_rel;
   P.alpha = alpha;
   P.restart_tol = restart_tol;
   P.sqrt_p = sqrtf(static_cast<float>(p));
-  return P;
-}
-
-}  // namespace
-
-extern "C" {
-
-// The batch entry returns cudaGetLastError() after its launch (0 = launched).
-int admm_tall_path_batch(const float* minv, const float* xty,
-                         const float* lam, float* z_out, int* niter_out,
-                         int p, int k, float rho, float eps_abs,
-                         float eps_rel, float alpha, int maxit,
-                         float restart_tol, void* stream) {
-  const size_t smem = sizeof(float) * 8 * static_cast<size_t>(p);
-  if (p <= 0 || k <= 0 || smem > admm::kMaxDynamicSmem)
-    return cudaErrorInvalidValue;
+  const size_t smem = admm::kGemmSmemBytes;
   cudaError_t err = admm::set_dynamic_smem(tall_path_batch_kernel, smem);
   if (err != cudaSuccess) return err;
-  TallParams P =
-      make_params(minv, xty, p, rho, eps_abs, eps_rel, alpha, restart_tol);
-  tall_path_batch_kernel<<<k, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      P, lam, z_out, niter_out, maxit);
-  return cudaGetLastError();
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(tall_path_batch_kernel), dim3(blocks),
+      dim3(kBatchThreads), args, smem, static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // minvT is the transpose of Minv, (p, ldp) with ldp a multiple of four and

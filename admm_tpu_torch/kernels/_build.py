@@ -49,15 +49,14 @@ _F = ctypes.c_float
 
 # C entry points: (name, argtypes).  Each returns cudaGetLastError().
 _ENTRIES = {
-    "admm_tall_path_batch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
-                             _I, _F, _P],
+    "admm_tall_path_batch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _F, _F, _F, _F, _I, _F, _P],
     "admm_tall_path_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _F, _F, _F, _F, _I, _F, _P],
     "admm_wide_path_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
-    "admm_lad_max_grid": [],
-    "admm_lad_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
-                       _I, _F, _P],
+    "admm_lad_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _F, _F, _F, _I, _F, _P],
     "admm_bp_batch_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _F, _F, _F, _I, _F, _P],
     "admm_glm_batch_path": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

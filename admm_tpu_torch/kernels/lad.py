@@ -11,22 +11,42 @@ coefficients (reference: src/ADMMLAD.h:220-225).
 
 H is symmetric, and kernel and plain form alike take the x-update's
 product as row dot products, ``H v``, which read H along its contiguous
-axis (the JAX kernel writes ``v H``).  The kernel splits H's rows over a
-cooperative grid; every block holds 6n floats of state in shared memory
-(four float32 rows and one float64 row), so it takes ``n <= MAX_N``; the
-caller checks :func:`fits` before it calls.
+axis (the JAX kernel writes ``v H``).  The kernel is one cooperative grid,
+one block per SM (:func:`launch_plan`): block b owns a contiguous range of
+H's rows, which a producer warp streams through a ring of stages in shared
+memory with bulk async copies, and every block holds about 5n floats of
+state (z, y, ys and the float64 right factor), so it takes
+``n <= MAX_N``; the caller checks :func:`fits` before it calls.  Rows whose
+length is not a multiple of four floats are padded in a copy this wrapper
+makes.  ``||ys||`` reaches the kernel as a device tensor and ``rho`` as a
+host number: nothing is read back from the card before the launch.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
-from ._common import (check_cuda_input, fadmm_momentum, matmul64, rnorm,
-                      soft_threshold, sqsum)
+from ._common import (check_cuda_input, fadmm_momentum, matmul64, pad4,
+                      padded_rows, rnorm, row_tile, sm_count, soft_threshold,
+                      sqsum)
 
-#: Largest n whose 6n floats of state fit one block's shared memory
-#: (232448 bytes on sm_90, less 2 KB for the reduction scratch).
+#: Largest n the kernel takes (the bound of the first kernel, 6n floats in
+#: 232448 - 2048 bytes of shared memory, kept): at n = MAX_N the state
+#: leaves room for a ring of eight 3.8 KB stages.
 MAX_N = (232448 - 2048) // (6 * 4)
+
+#: Threads of a block: eight consumer warps and the producer warp.
+THREADS = 288
+#: Dynamic shared memory a block may ask for (``admm::kMaxDynamicSmem``).
+_SMEM_BYTES = 232448 - 2048
+#: Most floats one stage of the ring holds (8 KB), and most stages.  The
+#: stages are a multiple of the eight consumer warps: slot s is read by
+#: warp s % 8.
+_SEG_MAX = 2048
+MAX_STAGES = 64
+_CONSUMER_WARPS = 8
+_SUMS = 6
+SYNCS_PER_ITERATION = 1
 
 #: Launch count: the wrapper adds one where it launches the kernel.
 solve_launches = 0
@@ -35,6 +55,43 @@ solve_launches = 0
 def fits(n: int) -> bool:
     """Whether the LAD kernel takes a problem with ``n`` observations."""
     return 1 <= n <= MAX_N
+
+
+def launch_plan(n: int, sms: int) -> dict:
+    """How one solve is launched on a card of ``sms`` SMs (mirrored by
+    ``csrc/lad.cu``): the grid (one block per SM, no more blocks than rows,
+    at most 256: thread b adds block b's sums), H's padded leading
+    dimension ``ld``, each block's rows (``row_tiles``), the state of a
+    block (v as ``ld`` float64s, the float64 sum of each of its rows'
+    segments, z, y, ys and its rows of adj_z, adj_y), the ring in what is
+    left: each row cut into ``segments_per_row`` stages of at most ``seg``
+    floats (8 KB, fewer where eight stages would not fit otherwise),
+    ``stages`` of them, a multiple of eight; and the scratch the
+    blocks exchange z_new, y_new (``exchange_floats`` each) and their
+    partial sums through, double-buffered."""
+    ld = pad4(n)
+    grid = max(1, min(int(sms), 256, int(n)))
+    rows_max = -(-n // grid)
+    nseg = -(-ld // _SEG_MAX)
+    while True:
+        seg = pad4(-(-ld // nseg))
+        state = (8 * ld + 8 * rows_max * -(-ld // seg)
+                 + 4 * (3 * pad4(n) + 2 * pad4(rows_max)))
+        room = _SMEM_BYTES - state
+        stages = min(MAX_STAGES, room // (4 * seg)) if room > 0 else 0
+        stages -= stages % _CONSUMER_WARPS
+        if stages >= _CONSUMER_WARPS:
+            break
+        if seg <= 4:
+            raise ValueError(f"LAD kernel: no room for a ring at n={n} on "
+                             f"{sms} SMs")
+        nseg += 1
+    return dict(
+        grid=grid, threads=THREADS, ld=ld, seg=seg,
+        segments_per_row=-(-ld // seg), stages=stages,
+        ring_bytes=4 * seg * stages, smem_bytes=state + 4 * seg * stages,
+        row_tiles=[row_tile(n, b, grid) for b in range(grid)],
+        exchange_floats=2 * n, partial_doubles=2 * _SUMS * grid)
 
 
 def lad_solve_reference(H, ys, rho, eps_abs, eps_rel, ynorm, maxit, *,
@@ -97,25 +154,37 @@ def lad_solve(H, ys, rho, eps_abs, eps_rel, ynorm, maxit, *,
     if not fits(n):
         raise ValueError(f"LAD kernel takes 1 <= n <= {MAX_N}, got {n}")
     lib = load_library()
+    plan = launch_plan(n, sm_count(dev))
+    # Rows on 16-byte boundaries (a copy only when n is not a multiple of
+    # four), and ||ys|| on the card whatever form it came in.
+    Hp = padded_rows(H)
+    if isinstance(ynorm, torch.Tensor):
+        yn = ynorm.detach().to(device=dev, dtype=torch.float32).reshape(1)
+    else:
+        yn = torch.full((1,), float(ynorm), dtype=torch.float32, device=dev)
     adj_y = torch.empty((n,), dtype=torch.float32, device=dev)
     adj_z = torch.empty((n,), dtype=torch.float32, device=dev)
     niter = torch.empty((1,), dtype=torch.int32, device=dev)
     # Scratch the blocks exchange z_new, y_new and their partial sums
-    # through, double-buffered on the iteration's parity.
-    znew = torch.empty((2, n), dtype=torch.float32, device=dev)
-    ynew = torch.empty((2, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((2, lib.admm_lad_max_grid(), 6),
-                          dtype=torch.float64, device=dev)
+    # through, double-buffered on the iteration's parity; none needs
+    # initialising.
+    znew = torch.empty((plan["exchange_floats"],), dtype=torch.float32,
+                       device=dev)
+    ynew = torch.empty_like(znew)
+    partial = torch.empty((plan["partial_doubles"],), dtype=torch.float64,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.admm_lad_solve(
-            H.data_ptr(), ys.data_ptr(), znew.data_ptr(), ynew.data_ptr(),
-            partial.data_ptr(), adj_y.data_ptr(), adj_z.data_ptr(),
-            niter.data_ptr(), n, float(rho), float(eps_abs), float(eps_rel),
-            float(ynorm), int(maxit), float(restart_tol), stream)
+            Hp.data_ptr(), ys.data_ptr(), yn.data_ptr(), znew.data_ptr(),
+            ynew.data_ptr(), partial.data_ptr(), adj_y.data_ptr(),
+            adj_z.data_ptr(), niter.data_ptr(), n, plan["ld"], plan["grid"],
+            plan["seg"], plan["stages"], float(rho), float(eps_abs),
+            float(eps_rel), int(maxit), float(restart_tol), stream)
     check(lib, err, "admm_lad_solve")
     solve_launches += 1
     return adj_y, adj_z, niter.reshape(())
 
 
-__all__ = ["MAX_N", "fits", "lad_solve", "lad_solve_reference"]
+__all__ = ["MAX_N", "SYNCS_PER_ITERATION", "fits", "lad_solve",
+           "lad_solve_reference", "launch_plan"]

@@ -9,34 +9,46 @@ CUDA tensor each launches its hand-written kernel in
 direct translation of the fused loop.  Both take exact (unpadded) shapes:
 Minv (p, p), Xty (p,), ilams (k,) -> ``(z (k, p), niter (k,) int32)``.
 
-The batch kernel runs one block per lane and holds 8p floats of lane
-state in shared memory (six float32 rows and one float64 row), so the
-kernels take ``p <= MAX_P``; the caller checks :func:`fits` before it
-calls.  The scan kernel is one cooperative grid, up to one block per SM
-(:func:`launch_plan`): the columns of Minv, read as rows of a transposed
-copy with a padded leading dimension that this wrapper makes once per
-call, are split over the grid's warps, every block holds a full copy of
-the lane (``2 pad4(p) + 5p`` floats of shared memory) and the blocks exchange
-z_new, y_new and their partial sums of squares through scratch in device
-memory, with one grid-wide sync per iteration.
+Both kernels are cooperative grids.  The batch kernel is one block per
+SM (:func:`batch_launch_plan`): every block works on all active lanes, and
+the coordinates, rows of a transposed copy of Minv with a padded leading
+dimension that this wrapper makes once per call, are split over the
+blocks, so one load of an element of Minv serves every lambda
+(``csrc/admm_common.cuh::lanes_product``).  Lane state (eight rows of
+``ldp`` floats per lane) lives in a zeroed float32 scratch buffer in device
+memory and the blocks' partial sums in ``k 6 grid`` float64s; more than 128
+lambdas go in groups of 128.  The scan kernel is up to one block per SM
+(:func:`launch_plan`): the columns of Minv, read as rows of the same
+transposed copy, are split over the grid's warps, every block holds a full
+copy of the lane (``2 pad4(p) + 5p`` floats of shared memory) and the
+blocks exchange z_new, y_new and their partial sums of squares through
+scratch in device memory, with one grid-wide sync per iteration.  Both take
+``p <= MAX_P``, the bound of the first kernels, kept as the port's rule;
+the caller checks :func:`fits` before it calls.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
-from ._common import (GRID_THREADS, check_cuda_input, enet_prox,
-                      fadmm_momentum, matmul64, pad4, padded_rows, rnorm,
-                      row_tile, sm_count, sqsum)
+from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, check_cuda_input,
+                      enet_prox, fadmm_momentum, lane_groups, matmul64, pad4,
+                      padded_rows, rnorm, row_tile, sm_count, sqsum)
 
-#: Largest p whose 8p floats of lane state fit one block's shared memory
-#: (232448 bytes on sm_90, less 2 KB for the reduction scratch).
+#: Largest p the kernels take: the first batch kernel's bound (8p floats of
+#: lane state in one block's 232448 - 2048 bytes of shared memory), kept.
 MAX_P = (232448 - 2048) // (8 * 4)
 
-#: Sums of squares a block of the scan kernel writes per iteration, and
-#: the grid-wide syncs of one iteration.
+#: Sums of squares a block writes per lane and iteration, and the
+#: grid-wide syncs of one iteration of each kernel (batch: one after the
+#: elementwise stage, one after the refresh that forms the next right-hand
+#: side).
 _SUMS = 6
 SCAN_SYNCS_PER_ITERATION = 1
+BATCH_SYNCS_PER_ITERATION = 2
+#: Rows of ``ldp`` floats of batch lane state per lane: the right-hand
+#: side, x_new, z_new, y_new, z, y, adj_z, adj_y.
+_BATCH_ROWS = 8
 
 #: Launch counts, one per kernel: each wrapper adds one where it launches.
 batch_launches = 0
@@ -66,6 +78,23 @@ def launch_plan(p: int, sms: int) -> dict:
         ldp=ldp,
         col_tiles=[row_tile(p, b, grid) for b in range(grid)],
         exchange_floats=2 * p, partial_doubles=2 * grid * _SUMS)
+
+
+def batch_launch_plan(p: int, k: int, sms: int) -> dict:
+    """How one batch call is launched on a card of ``sms`` SMs: the grid
+    (one block per SM), Minv''s padded leading dimension, each block's
+    coordinates (``p_tiles``: rows of Minv' in the product, and its
+    coordinates in the elementwise stages), the lane groups (one launch
+    each) and the scratch sizes of the largest."""
+    ldp = pad4(p)
+    groups = lane_groups(k)
+    lanes = max(hi - lo for lo, hi in groups)
+    return dict(
+        grid=sms, threads=GRID_THREADS, smem_bytes=PRODUCT_SMEM_BYTES,
+        ldp=ldp, lane_groups=groups,
+        p_tiles=[row_tile(p, b, sms) for b in range(sms)],
+        scratch_floats=_BATCH_ROWS * lanes * ldp,
+        partial_doubles=sms * lanes * _SUMS)
 
 
 def _sqrt_dim(p, dtype, device):
@@ -191,17 +220,29 @@ def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
                                          restart_tol=restart_tol)
     p, k, dev = _check_inputs(Minv, Xty, ilams)
     lib = load_library()
+    plan = batch_launch_plan(p, k, sm_count(dev))
+    # ``rhs Minv`` reads Minv's columns, and Minv is symmetric only up to
+    # rounding: the product goes over the rows of a transposed copy,
+    # zero-padded so that every row starts on a 16-byte boundary.
+    MinvT = padded_rows(Minv.mT)
     z = torch.empty((k, p), dtype=torch.float32, device=dev)
     niter = torch.empty((k,), dtype=torch.int32, device=dev)
+    partial = torch.empty((plan["partial_doubles"],), dtype=torch.float64,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admm_tall_path_batch(
-            Minv.data_ptr(), Xty.data_ptr(), ilams.data_ptr(), z.data_ptr(),
-            niter.data_ptr(), p, k, float(rho), float(eps_abs),
-            float(eps_rel), float(alpha), int(maxit), float(restart_tol),
-            stream)
-    check(lib, err, "admm_tall_path_batch")
-    batch_launches += 1
+        for lo, hi in plan["lane_groups"]:
+            # The iterates start at 0, and the padding stays 0.
+            scratch = torch.zeros((plan["scratch_floats"],),
+                                  dtype=torch.float32, device=dev)
+            err = lib.admm_tall_path_batch(
+                MinvT.data_ptr(), Xty.data_ptr(), ilams[lo:hi].data_ptr(),
+                scratch.data_ptr(), partial.data_ptr(), z[lo:hi].data_ptr(),
+                niter[lo:hi].data_ptr(), p, plan["ldp"], hi - lo,
+                plan["grid"], float(rho), float(eps_abs), float(eps_rel),
+                float(alpha), int(maxit), float(restart_tol), stream)
+            check(lib, err, "admm_tall_path_batch")
+            batch_launches += 1
     return z, niter
 
 
@@ -246,6 +287,7 @@ def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
     return z, niter
 
 
-__all__ = ["MAX_P", "SCAN_SYNCS_PER_ITERATION", "fits", "launch_plan",
+__all__ = ["BATCH_SYNCS_PER_ITERATION", "MAX_P", "SCAN_SYNCS_PER_ITERATION",
+           "batch_launch_plan", "fits", "launch_plan",
            "tall_path_batch", "tall_path_batch_reference", "tall_path_scan",
            "tall_path_scan_reference"]

@@ -45,8 +45,8 @@ from .lasso import _as_tensor, _not_ported
 
 
 def _use_kernel_lad(n: int, dtype, tau: float) -> bool:
-    """LAD kernel: float32, the symmetric (median) prox, and 6n floats of
-    state in each block's shared memory (``n <= kernels.lad.MAX_N``)."""
+    """LAD kernel: float32, the symmetric (median) prox, and n no larger
+    than the kernel takes (``n <= kernels.lad.MAX_N``)."""
     return dtype == torch.float32 and tau == 0.5 and lad_kernel.fits(n)
 
 
@@ -139,12 +139,15 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5):
     n = X.shape[0]
     dtype, dev = X.dtype, X.device
     Xa, ys, stats, Ginv, ynorm = _lad_setup(X, y, intercept)
+    # The kernel takes rho as a host number and ||ys|| as a device tensor:
+    # nothing is read back from the card before its launch.
+    rho_host = float(rho)
     rho = torch.as_tensor(rho, dtype=dtype, device=dev)
 
     if _use_kernel_lad(n, dtype, tau):
         adj_y, adj_z, niter = lad_kernel.lad_solve(
-            _hat_matrix(Xa, Ginv), ys.contiguous(), rho, eps_abs, eps_rel,
-            ynorm, maxit)
+            _hat_matrix(Xa, Ginv), ys.contiguous(), rho_host, eps_abs,
+            eps_rel, ynorm, maxit)
     else:
         ops = _lad_ops(Xa, ys, Ginv, ynorm, n, Xa.shape[1], tau=tau)
         solve = make_fadmm_solver(ops, adapt_rho=False)

@@ -132,8 +132,8 @@ _ACTIVESET_AUTO_P = 20000
 # ---------------------------------------------------------------------------
 
 def _use_kernel_tall(p: int, dtype) -> bool:
-    """Tall path kernels: float32, and 8p floats of lane state in one
-    block's shared memory (``p <= kernels.tall_path.MAX_P``)."""
+    """Tall path kernels: float32, and p no larger than the kernels take
+    (``p <= kernels.tall_path.MAX_P``)."""
     return dtype == torch.float32 and tall_path.fits(p)
 
 
@@ -469,10 +469,31 @@ def lasso_path(X, y, *, lambdas=None, nlambda: int = 100,
     ``dfmax``/``pmax``, ``trace_len``, ``data_mesh``,
     ``path_mode="activeset"`` and the scan-mode wide solve at
     p >= 20000, which the JAX package sends to its active-set solver.
+    ``path_mode="activeset"`` first raises the JAX package's
+    ``ValueError`` where it refuses the mode: on tall data, with
+    ``penalty_factor``, with limits or ``exclude``.
     """
     if path_mode not in ("scan", "batch", "activeset"):
         raise ValueError(
             "path_mode must be 'scan', 'batch' or 'activeset'")
+    if path_mode == "activeset" and trace_len is None:
+        # The JAX package's refusals of the mode, in its order, before
+        # anything that is not ported (with ``trace_len`` it takes the
+        # traced scan instead).
+        n_rows, n_cols = X.shape if hasattr(X, "shape") else np.shape(X)
+        if n_rows > n_cols:
+            raise ValueError("path_mode='activeset' is the wide-regime "
+                             "(p >= n) solver; tall problems use the "
+                             "factorized engines")
+        if penalty_factor is not None:
+            raise ValueError("penalty_factor is not supported by the "
+                             "active-set path (per-coordinate "
+                             "thresholds); use 'batch' or 'scan'")
+        if (lower_limits is not None or upper_limits is not None
+                or exclude is not None):
+            raise ValueError("coefficient limits are not supported by "
+                             "the active-set path; use 'batch' or "
+                             "'scan'")
     _not_ported(penalty_factor=penalty_factor, lower_limits=lower_limits,
                 upper_limits=upper_limits, exclude=exclude, dfmax=dfmax,
                 pmax=pmax, trace_len=trace_len, data_mesh=data_mesh)

@@ -18,10 +18,9 @@ Phases, in order:
    and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one, the
    GLM path at 2000 x 200 with 30 lambdas for the logistic and Huber
    losses and at 10000 x 1000 with 100 lambdas for the logistic loss), at
-   the kernel tests' bars; the tall scan, wide, GLM and BP kernels
-   (cooperative grids that add the blocks' partial sums in a fixed order)
-   are also launched twice on the same inputs and must give identical
-   bits;
+   the kernel tests' bars; all six kernels (cooperative grids that add
+   the blocks' partial sums in a fixed order) are also launched twice on
+   the same inputs and must give identical bits (LAD at both sizes);
 4. the main paths through the public entry points on the card, with every
    launch count set to 0 before and read after, each call's result held
    against the port's float64 engine run on the card;
@@ -29,13 +28,17 @@ Phases, in order:
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
    operations over 67 TFLOP/s float32, for the iterations this run's data
-   needed); for the tall scan kernel the grid, the grid syncs and the time
-   per iteration over the run; for the wide, GLM and BP kernels the grid,
-   the grid syncs per iteration, the time per iteration of the slowest
-   lane and the time per iteration with every lane active; the GLM kernel
+   needed); for the tall scan and LAD kernels the grid, the grid syncs and
+   the time per iteration over the run (LAD: its ring, and the floor of
+   streaming H from device memory every iteration); for the tall batch,
+   wide, GLM and BP kernels the grid, the grid syncs per iteration, the
+   time per iteration of the slowest lane and the time per iteration with
+   every lane active; as yardsticks the port never calls, ``torch.mv(H,
+   v)`` for one LAD iteration's product and a float32 100 x p x p product
+   for one tall batch iteration's; the GLM kernel
    beside the float32 engine on the same batch problem; then the stages of
-   one scan-mode Lasso path, one wide fit, one LAD fit, one batched BP
-   solve and one logistic fit on the host clock.
+   one scan-mode Lasso path, one tall and one wide batch fit, one LAD fit,
+   one batched BP solve and one logistic fit on the host clock.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
 last line.  Exits nonzero, printing no result, without a CUDA device,
@@ -395,10 +398,11 @@ def main() -> int:
         """LAD kernel against plain: the invariant is the recovered
         coefficient vector and its L1 objective (the terminal duals are
         path-dependent near the L1 kinks); the raw state's gap and niter
-        are printed beside it."""
+        are printed beside it, and a second launch must repeat the bits."""
         Xa, ys, Ginv = rec
         ay, az, nk = lad.lad_solve(*args)
         torch.cuda.synchronize()
+        same_bits_twice(label, lad.lad_solve, args, (ay, az, nk))
         ay_p, az_p, np_ = lad.lad_solve_reference(*args)
         coef_of = lambda a_y, a_z: Ginv @ (Xa.mT @ (ys - a_y / RHO_L1 + a_z))
         obj_of = lambda c: float(torch.sum(torch.abs(
@@ -417,16 +421,18 @@ def main() -> int:
                     f"{label}: objective <= {LAD_OBJ_BAR} x plain's")
         print(f"  {label}: the path kernels' bars (coef gap <= {COEF_BAR}, niter within "
               f"1): {'met' if err <= COEF_BAR and abs(nk - np_) <= 1 else 'not met'}")
+        print(f"  {label}: the target (gap 0, identical niter): "
+              f"{'met' if err == 0.0 and nk == np_ else 'not met'}")
         return err, nk, np_
 
     glm_iters, slowest = {}, {}   # lane-iterations; slowest lane's niter
 
     def same_bits_twice(label, kernel, args, first):
         """No atomics, sums in a fixed order: a second launch on the same
-        inputs must repeat the first one's bits and niter."""
-        z2, n2 = kernel(*args)
+        inputs must repeat every output of the first one, niter included."""
+        again = kernel(*args)
         torch.cuda.synchronize()
-        smoke.check(torch.equal(z2, first[0]) and torch.equal(n2, first[1]),
+        smoke.check(all(torch.equal(a, b) for a, b in zip(again, first)),
                     f"{label}: two launches give identical bits and niter")
 
     def glm_compare(label):
@@ -479,7 +485,8 @@ def main() -> int:
             continue
         zk, nk = kernel(*args)
         torch.cuda.synchronize()
-        if name in ("bp_batch_solve", "tall_path_scan", "wide_path_batch"):
+        if name in ("bp_batch_solve", "tall_path_scan", "wide_path_batch",
+                    "tall_path_batch"):
             same_bits_twice(name, kernel, args, (zk, nk))
         zp, np_ = plain(*args)
         torch.cuda.synchronize()
@@ -510,6 +517,10 @@ def main() -> int:
                         "batch, to the bit")
         else:
             smoke.check(err <= COEF_BAR, f"{name}: coef gap <= {COEF_BAR}")
+        if name == "tall_path_batch":
+            print(f"  {name}: the target (gap 0, identical niter in every "
+                  f"lane): {'met' if err == 0.0 and (nk == np_).all() else 'not met'}"
+                  f"; slowest lane {int(nk.max())} iterations")
         if name == "tall_path_scan":
             tot_k, tot_p = int(nk.sum()), int(np_.sum())
             smoke.check(abs(tot_k - tot_p) <= max(3, int(0.1 * tot_p)),
@@ -702,6 +713,16 @@ def main() -> int:
               record["tall_path_scan"]["niter_total"],
               tall_path.launch_plan(P, sms),
               tall_path.SCAN_SYNCS_PER_ITERATION, of="the one lane")
+    grid_line(f"tall_path_batch {P} x {P} x {K}",
+              record["tall_path_batch"]["ms"], slowest["tall_path_batch"],
+              tall_path.batch_launch_plan(P, K, sms),
+              tall_path.BATCH_SYNCS_PER_ITERATION)
+    tb_iters = record["tall_path_batch"]["niter_total"]
+    print(f"  tall_path_batch: {record['tall_path_batch']['ms'] * 1e3 / tb_iters:.3f}"
+          f" us per lane-iteration over {tb_iters} lane-iterations")
+    grid_line(f"lad_solve {Nl} x {Nl}", record["lad_solve"]["ms"],
+              record["lad_solve"]["niter_total"], lad.launch_plan(Nl, sms),
+              lad.SYNCS_PER_ITERATION, of="the one lane")
     grid_line(f"wide_path_batch {Nw} x {Pw} x {K}",
               record["wide_path_batch"]["ms"], slowest["wide_path_batch"],
               wide_path.launch_plan(Nw, Pw, K, sms),
@@ -744,6 +765,32 @@ def main() -> int:
     print(f"  lad_solve 5000 x 1000: kernel {ms5:.3f} ms, plain {plain5:.3f} "
           f"ms (medians of 3), bound {b5:.4f} ms by {by5} ({int(it5)} "
           "iterations)")
+    grid_line(f"lad_solve {n5} x {n5}", ms5, int(it5), lad.launch_plan(n5, sms),
+              lad.SYNCS_PER_ITERATION, of="the one lane")
+    # LAD's floor when H is read from device memory every iteration (H at
+    # n = 5000 is 100 MB, past the 50 MB L2), and the library yardsticks,
+    # which the port never calls: one iteration's product as cuBLAS gemv.
+    for n_, it_, ms_, H_ in (
+            (Nl, record["lad_solve"]["niter_total"], record["lad_solve"]["ms"],
+             lad_args[0]),
+            (n5, int(it5), ms5, lad5_args[0])):
+        plan_ = lad.launch_plan(n_, sms)
+        v_ = torch.ones(n_, **f32)
+        mv_ms = cuda_median_ms(torch, lambda: torch.mv(H_, v_), reps=20)
+        floor_ms = it_ * n_ * n_ * 4 / PEAK_BYTES_PER_S * 1e3
+        print(f"  lad_solve n = {n_}: ring of {plan_['stages']} stages x "
+              f"{4 * plan_['seg']} bytes ({plan_['ring_bytes']} bytes), "
+              f"{plan_['segments_per_row']} stage(s) per row; HBM-streaming "
+              f"floor {floor_ms:.3f} ms ({it_} x n^2 x 4 B / 3.35 TB/s) beside "
+              f"the kernel's {ms_:.3f} ms; yardstick torch.mv(H, v) "
+              f"{mv_ms * 1e3:.2f} us per iteration, x {it_} = "
+              f"{mv_ms * it_:.3f} ms")
+    V_ = torch.ones((K, P), **f32)
+    mm_ms = cuda_median_ms(torch, lambda: torch.mm(V_, Minv), reps=20)
+    print(f"  tall_path_batch: yardstick float32 {K} x {P} x {P} product "
+          f"(torch.mm) {mm_ms * 1e3:.2f} us per iteration, x the slowest "
+          f"lane's {slowest['tall_path_batch']} = "
+          f"{mm_ms * slowest['tall_path_batch']:.3f} ms")
     # The GLM kernel at the benchmark problem's size, and beside it the
     # float32 engine on the same batch problem (the route the path would
     # take without the kernel: one host read of `done` per iteration).  The
@@ -820,9 +867,9 @@ def main() -> int:
               f"{cuda_median_ms(torch, call, reps=reps):.3f} ms"
               f"{' (median of 3)' if reps == 3 else ''}")
 
-    # Stage breakdown of one scan-mode Lasso path, one wide fit, one LAD fit,
-    # one batched BP solve and one logistic fit: what the entry points do,
-    # stage by stage, on the host clock.
+    # Stage breakdown of one scan-mode Lasso path, one tall and one wide
+    # batch fit, one LAD fit, one batched BP solve and one logistic fit:
+    # what the entry points do, stage by stage, on the host clock.
     print("phase: stages (host clock to a synchronize, median of 5 after a "
           "warm-up)", flush=True)
 
@@ -865,6 +912,19 @@ def main() -> int:
              a[5][2], EPS, EPS, 1.0, MAXIT))),
         (", on the card", lambda lams, beta0, coef, niter: (beta0, coef)))
     lasso_stages(
+        f"admm_lasso().fit() {X.shape[0]} x {P} x {K} (tall batch)", X, y,
+        1e-4,
+        ("Gram, X'y, power iteration, ridge inverse (_tall_setup)",
+         lambda a: (*a, _tall_setup(a[0], a[1], a[4][0], -1.0))),
+        ("tall_path_batch kernel (with the transposed copy of Minv)",
+         lambda a: (*a[:5], *tall_path.tall_path_batch(
+             a[5][0].contiguous(), a[5][1].contiguous(), a[4].contiguous(),
+             a[5][2], EPS, EPS, 1.0, MAXIT))),
+        (", sparse beta on the host",
+         lambda lams, beta0, coef, niter: (
+             lams.cpu().numpy(), _sparse_beta(beta0, coef),
+             niter.cpu().numpy())))
+    lasso_stages(
         f"admm_lasso().fit() {Nw} x {Pw} x {K} (wide batch)", Xw, yw, 1e-2,
         ("X'y, power iteration on XX', per-lane rho (_wide_setup)",
          lambda a: (*a, _wide_setup(a[0], a[1], a[4], -1.0, 1.0, False))),
@@ -890,7 +950,7 @@ def main() -> int:
          lambda a: _lad_setup(a[0], a[1], False)),
         ("hat matrix H = Xa Ginv Xa'",
          lambda a: (*a, _hat_matrix(a[0], a[3]))),
-        ("lad_solve kernel (with the host read of ||ys||)",
+        ("lad_solve kernel (||ys|| stays on the card)",
          lambda a: (*a[:5], *lad.lad_solve(a[5], a[1].contiguous(), RHO_L1,
                                            EPS_L1, EPS_L1, a[4], MAXIT)[:2])),
         ("recovery solve, un-standardize, to host", lad_recover),

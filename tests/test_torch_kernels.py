@@ -323,8 +323,8 @@ def test_lad_bp_wrappers_run_plain_form_on_cpu(lad_inputs, bp_inputs):
 
 
 def test_lad_bp_shape_rules():
-    """LAD: 6n floats of state in one block's 232448 - 2048 bytes of shared
-    memory.  BP: the dispatch bound 8p + 4n <= 57600 floats, which was the
+    """LAD: the first kernel's bound, 6n floats in one block's 232448 -
+    2048 bytes of shared memory, kept.  BP: the dispatch bound 8p + 4n <= 57600 floats, which was the
     first BP kernel's shared-memory size and is kept as the port's rule
     (the cooperative-grid kernel keeps lane state in device memory); there
     is no rule on the number of BP signals."""
@@ -731,3 +731,106 @@ def test_wide_wrapper_one_lane_runs_plain_form_on_cpu(wide_inputs, alpha):
     assert float((x1[0] - x[4]).abs().max()) <= 1e-5
     assert abs(int(n1[0]) - int(niter[4])) <= 1
     assert kernels.launch_counts()["wide_path_batch"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The launch plans of the LAD and tall batch kernels
+# ---------------------------------------------------------------------------
+
+LAD_PLAN_N = [1000, 5000, 303, lad.MAX_N, 1, 7, 4097, 2500]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", LAD_PLAN_N)
+def test_lad_launch_plan(n, sms):
+    """One block per SM, no more blocks than rows and no more than 256
+    (thread b adds block b's sums); every row of H has exactly one owner;
+    H's leading dimension is a multiple of four; each row is cut into
+    segments of at most 2048 floats, multiples of four, that cover it; the
+    ring has a multiple of eight stages (slot s is read by consumer warp
+    s % 8), at most 64, and, with the state (v as ld float64s, the
+    float64 sum of each segment of a block's rows, z, y, ys and the block's
+    adj_z, adj_y), fits a block's dynamic shared memory."""
+    plan = lad.launch_plan(n, sms)
+    grid = plan["grid"]
+    assert grid == min(sms, n, 256) and plan["threads"] == 288
+    sizes = _covers_once(plan["row_tiles"], n)
+    assert min(sizes) >= 1 and max(sizes) == -(-n // grid)
+    ld, seg, nseg = plan["ld"], plan["seg"], plan["segments_per_row"]
+    assert ld % 4 == 0 and n <= ld < n + 4
+    assert seg % 4 == 0 and 4 <= seg <= 2048
+    assert (nseg - 1) * seg < ld <= nseg * seg
+    assert 8 <= plan["stages"] <= lad.MAX_STAGES and plan["stages"] % 8 == 0
+    assert plan["ring_bytes"] == 4 * seg * plan["stages"]
+    rows = max(sizes)
+    state = (8 * ld + 8 * rows * nseg
+             + 4 * (3 * kcommon.pad4(n) + 2 * kcommon.pad4(rows)))
+    assert plan["smem_bytes"] == state + plan["ring_bytes"] <= 232448 - 2048
+    # The ring holds all the multiples of eight stages that are left.
+    assert (plan["stages"] == lad.MAX_STAGES
+            or plan["smem_bytes"] + 8 * 4 * seg > 232448 - 2048)
+    assert plan["exchange_floats"] == 2 * n
+    assert plan["partial_doubles"] == 2 * 6 * grid
+
+
+def test_lad_plan_at_the_main_path_shapes():
+    """The numbers the kernel's notes quote: at n = 1000 a block owns 7 or
+    8 rows of 4 KB and the ring holds 48 stages (its whole share, and six
+    iterations ahead); at n = 5000 each row is three 6.7 KB stages, 16 of
+    them in flight (107 KB); at n = MAX_N ten 3.8 KB stages per row and a
+    ring of eight; odd n is padded to a multiple of four; one sync per
+    iteration; ``fits`` is what it was."""
+    p1 = lad.launch_plan(1000, 132)
+    assert p1["grid"] == 132 and p1["ld"] == 1000
+    assert {hi - lo for lo, hi in p1["row_tiles"]} == {7, 8}
+    assert p1["seg"] == 1000 and p1["segments_per_row"] == 1
+    assert p1["stages"] == 48 and p1["ring_bytes"] == 192000
+    p5 = lad.launch_plan(5000, 132)
+    assert {hi - lo for lo, hi in p5["row_tiles"]} == {37, 38}
+    assert p5["seg"] == 1668 and p5["segments_per_row"] == 3
+    assert p5["stages"] == 16 and p5["ring_bytes"] == 106752 >= 64 * 1024
+    big = lad.launch_plan(lad.MAX_N, 132)
+    assert big["seg"] == 960 and big["segments_per_row"] == 10
+    assert big["stages"] == 8
+    assert lad.launch_plan(303, 132)["ld"] == 304
+    assert lad.SYNCS_PER_ITERATION == 1
+    assert lad.MAX_N == 9600 and lad.fits(9600) and not lad.fits(9601)
+
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("n,p,k", PLAN_SHAPES)
+def test_tall_batch_launch_plan(n, p, k, sms):
+    """As for the wide kernel: one block per SM; every coordinate (row of
+    Minv') has exactly one owner; Minv' gets a leading dimension that is a
+    multiple of four; scratch holds eight rows of ldp floats per lane for
+    the lanes of one launch, the partial sums lanes x 6 x grid doubles;
+    lanes go in groups of at most 128."""
+    plan = tall_path.batch_launch_plan(p, k, sms)
+    assert plan["grid"] == sms == len(plan["p_tiles"])
+    assert plan["threads"] == 256
+    sizes = _covers_once(plan["p_tiles"], p)
+    assert max(sizes) == -(-p // sms)
+    assert plan["ldp"] % 4 == 0 and p <= plan["ldp"] < p + 4
+    groups = plan["lane_groups"]
+    assert groups[0][0] == 0 and groups[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    lanes = max(hi - lo for lo, hi in groups)
+    assert lanes == min(k, 128)
+    assert plan["scratch_floats"] == 8 * lanes * plan["ldp"]
+    assert plan["partial_doubles"] == sms * lanes * 6
+    assert plan["smem_bytes"] == (64 + 128) * 33 * 16 <= 232448
+
+
+def test_tall_batch_plan_at_the_main_path_shapes():
+    """p = 1000, 100 lambdas: a block owns 7 or 8 coordinates, the lane
+    state is 3.2 MB, one launch; k = 1 and k = 130 (two launches); two
+    syncs per iteration."""
+    b = tall_path.batch_launch_plan(1000, 100, 132)
+    assert {hi - lo for lo, hi in b["p_tiles"]} == {7, 8}
+    assert b["ldp"] == 1000 and b["lane_groups"] == [(0, 100)]
+    assert b["scratch_floats"] * 4 == 8 * 100 * 1000 * 4 == 3_200_000
+    assert tall_path.batch_launch_plan(1000, 1, 132)["lane_groups"] == [(0, 1)]
+    assert tall_path.batch_launch_plan(37, 130, 132)["lane_groups"] == [
+        (0, 128), (128, 130)]
+    assert tall_path.BATCH_SYNCS_PER_ITERATION == 2
+    assert tall_path.fits(tall_path.MAX_P) and not tall_path.fits(7201)

@@ -232,10 +232,11 @@ def test_lad_bp_kernels_reject_what_they_do_not_take(lad_args, bp_args):
 
 @pytest.mark.parametrize("n", [303, lad.MAX_N])
 def test_lad_kernel_odd_and_largest_n(dev, n):
-    """n = 303 is not a multiple of 4, so rows are not 16-byte aligned and
-    the kernel takes its scalar loads; n = MAX_N is the most one block's
-    shared memory holds.  Five iterations, unconverged: the terminal
-    state within 1e-5 of the plain form's, and ``fits`` ends there."""
+    """n = 303 is not a multiple of 4, so the wrapper pads H's rows; at
+    n = MAX_N the state leaves room for a ring of eight stages, each row is
+    ten stages, and the ring wraps hundreds of times.  Five iterations,
+    unconverged: the terminal state within 1e-5 of the plain form's, and
+    ``fits`` ends there."""
     gen = torch.Generator(device="cpu").manual_seed(n)
     X = torch.randn((n, 12), generator=gen).to(dev)
     ys = torch.randn((n,), generator=gen).to(dev)
@@ -673,9 +674,9 @@ def test_scan_and_wide_launches_give_identical_bits(tall_args, wide_args):
 
 
 def test_tall_scan_kernel_largest_p(dev):
-    """p = MAX_P is the most ``fits`` admits (the batch kernel's 8p floats
-    of shared memory; the scan kernel's blocks hold 7p) and Minv (207 MB)
-    is past the L2; p + 1 is refused.  Three iterations at each of two
+    """p = MAX_P is the most ``fits`` admits (the first batch kernel's 8p
+    floats of shared memory; the scan kernel's blocks hold 7p) and Minv
+    (207 MB) is past the L2; p + 1 is refused.  Three iterations at each of two
     lambdas: z within 1e-5 of the plain form's."""
     p = tall_path.MAX_P
     assert tall_path.fits(p) and not tall_path.fits(p + 1)
@@ -713,3 +714,156 @@ def test_wide_kernel_largest_shape(dev):
         wide_path.wide_path_batch(torch.zeros((n, p + 1), device=dev), ys,
                                   ilams, rhos, sprad, lambda0, 1e-9, 1e-9,
                                   1.0, 3)
+
+
+# ---------------------------------------------------------------------------
+# The LAD kernel's ring of bulk async copies, and the tall batch kernel as a
+# cooperative grid whose blocks share each load of Minv among the lanes.
+# ---------------------------------------------------------------------------
+
+def _lad_problem(dev, n, p=12):
+    rng = np.random.default_rng(n)
+    X = rng.normal(size=(n, p))
+    y = X @ rng.normal(size=p) + rng.standard_t(2, size=n)
+    Xs = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    Ginv = chol_inverse(gram(Xs), jitter=1e-6)
+    H = (Xs @ (Ginv @ Xs.mT)).contiguous()
+    return X, y, Xs, ys, Ginv, H
+
+
+@pytest.mark.parametrize("n", [997, 1000, 4097])
+def test_lad_kernel_ragged_n_matches_plain(dev, n):
+    """A whole solve at n = 997 (rows padded to 1000 floats), 1000 (blocks
+    of 7 and 8 rows, the ring holding several iterations) and 4097 (rows
+    padded to 4100 and cut into two stages of unequal length): the JAX
+    package's bar, coefficients within 5e-3 and an L1 objective no more
+    than 1.001x the plain form's, and niter within max(3, 5%)."""
+    X, y, Xs, ys, Ginv, H = _lad_problem(dev, n)
+    ynorm = torch.linalg.norm(ys)
+    args = (H, ys, 5.0, 2e-5, 2e-5, ynorm, MAXIT)
+    ay, az, niter = lad.lad_solve(*args)
+    torch.cuda.synchronize()
+    ay_ref, az_ref, n_ref = lad.lad_solve_reference(*args)
+    assert 0 < int(niter) < MAXIT
+    assert abs(int(niter) - int(n_ref)) <= max(3, int(0.05 * int(n_ref)))
+
+    def coef_of(adj_y, adj_z):
+        v = ys - adj_y / 5.0 + adj_z
+        return (Ginv @ (Xs.mT @ v)).cpu().numpy().astype(np.float64)
+
+    c, c_ref = coef_of(ay, az), coef_of(ay_ref, az_ref)
+    obj = lambda c: np.abs(y - X @ c).sum()
+    np.testing.assert_allclose(c, c_ref, atol=5e-3)
+    assert obj(c) <= obj(c_ref) * 1.001
+
+
+def test_lad_kernel_takes_ynorm_as_a_tensor_or_a_number(lad_args):
+    """||ys|| as a 0-d tensor on the card (what ``lad_fit`` passes: no host
+    read before the launch) or as a host number gives the same bits."""
+    w = lad_args
+    tail = (w["H"], w["ys"], 5.0, 1e-5, 1e-5)
+    a = lad.lad_solve(*tail, torch.linalg.norm(w["ys"]), MAXIT)
+    b = lad.lad_solve(*tail, w["ynorm"], MAXIT)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("maxit", [1, 2, 7])
+def test_lad_kernel_stops_at_maxit(lad_args, maxit):
+    """Solves that run out of iterations report ``maxit`` and the state the
+    plain form reaches (the producer's copies still in flight land before
+    the block ends)."""
+    w = lad_args
+    args = (w["H"], w["ys"], 5.0, 1e-9, 1e-9, w["ynorm"], maxit)
+    ay, az, niter = lad.lad_solve(*args)
+    torch.cuda.synchronize()
+    ay_ref, az_ref, n_ref = lad.lad_solve_reference(*args)
+    assert int(niter) == int(n_ref) == maxit
+    assert float((ay - ay_ref).abs().max()) <= 1e-5
+    assert float((az - az_ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.6])
+@pytest.mark.parametrize("n,p,k", [(30, 5, 4), (90, 37, 1), (400, 203, 20),
+                                   (300, 163, 130), (2500, 1030, 6)])
+def test_tall_batch_kernel_ragged_shapes_and_lane_counts(dev, n, p, k,
+                                                         alpha):
+    """p that is no multiple of four (a padded leading dimension of the
+    transposed Minv), fewer coordinates than the grid has blocks (p = 5,
+    37), one lane, more lanes than one launch takes (130: two launches),
+    on a lambda grid that starts above lambda0: z within 1e-5 and niter
+    within 1 per lane of the plain form's."""
+    args = (*_tall_problem(dev, n, p, k, above=1.2), 1e-5, 1e-5, alpha, MAXIT)
+    before = kernels.launch_counts()["tall_path_batch"]
+    z, niter = tall_path.tall_path_batch(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["tall_path_batch"] == before + len(
+        tall_path.batch_launch_plan(p, k, 132)["lane_groups"])
+    z_ref, n_ref = tall_path.tall_path_batch_reference(*args)
+    assert z.shape == (k, p) and niter.dtype == torch.int32
+    assert torch.equal(z[0] == 0, z_ref[0] == 0)
+    assert float((z - z_ref).abs().max()) <= 1e-5
+    assert int((niter - n_ref).abs().max()) <= 1
+    assert int(niter.max()) < MAXIT
+
+
+@pytest.mark.parametrize("maxit", [1, 2, 7])
+def test_tall_batch_kernel_lanes_at_maxit(tall_args, maxit):
+    """Lanes that run out of iterations report ``maxit`` and the state they
+    reached, as the plain form does."""
+    args = (*tall_args, 1e-9, 1e-9, 0.6, maxit)
+    z, niter = tall_path.tall_path_batch(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = tall_path.tall_path_batch_reference(*args)
+    assert niter.tolist() == n_ref.tolist() == [maxit] * len(niter)
+    assert float((z - z_ref).abs().max()) <= 1e-5
+
+
+def test_tall_batch_lanes_that_finish_apart_equal_each_lane_alone(tall_args):
+    """Ten lanes converge at different iterations; each must come out as if
+    it had run alone (k = 1), to the bit."""
+    Minv, Xty, ilams, rho = tall_args
+    tail = (rho, 1e-5, 1e-5, 1.0, MAXIT)
+    z, niter = tall_path.tall_path_batch(Minv, Xty, ilams, *tail)
+    torch.cuda.synchronize()
+    assert len(set(niter.tolist())) > 1 and int(niter.max()) < MAXIT
+    for i in range(ilams.shape[0]):
+        z1, n1 = tall_path.tall_path_batch(Minv, Xty,
+                                           ilams[i:i + 1].contiguous(), *tail)
+        assert int(n1[0]) == int(niter[i]) and torch.equal(z1[0], z[i])
+
+
+def test_lad_and_tall_batch_launches_give_identical_bits(lad_args, tall_args):
+    """No atomics and sums in a fixed order: the same inputs give the same
+    bits and the same niter twice, for both kernels."""
+    w = lad_args
+    runs = [lad.lad_solve(w["H"], w["ys"], 5.0, 1e-5, 1e-5, w["ynorm"],
+                          MAXIT) for _ in range(2)]
+    torch.cuda.synchronize()
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+    runs = [tall_path.tall_path_batch(*tall_args, 1e-5, 1e-5, 0.6, MAXIT)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_tall_batch_kernel_largest_p(dev):
+    """p = MAX_P with Minv (207 MB) past the L2, two lanes, three
+    iterations: z within 1e-5 of the plain form's; p + 1 is refused."""
+    p = tall_path.MAX_P
+    Minv, Xty, ilams, rho = _tall_problem(dev, 300, p, 2, above=0.5)
+    args = (Minv, Xty, ilams, rho, 1e-9, 1e-9, 1.0, 3)
+    z, niter = tall_path.tall_path_batch(*args)
+    torch.cuda.synchronize()
+    z_ref, n_ref = tall_path.tall_path_batch_reference(*args)
+    assert niter.tolist() == n_ref.tolist() == [3, 3]
+    assert float(z.abs().max()) > 0.0
+    assert float((z - z_ref).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="tall path kernels take"):
+        tall_path.tall_path_batch(torch.zeros((p + 1, p + 1), device=dev),
+                                  torch.zeros((p + 1,), device=dev), ilams,
+                                  rho, 1e-9, 1e-9, 1.0, 3)

@@ -163,11 +163,14 @@ def test_tensor_input_stays_on_its_device(tall):
     "adaptive_lasso_path", "builder_penalty_factor", "builder_limits",
     "builder_parallel", "builder_trace", "builder_activeset", "fit_plot",
 ])
-def test_options_not_ported_raise(tall, option):
+def test_options_not_ported_raise(tall, wide, option):
     X, y = tall
     ones = np.ones(X.shape[1])
     path = lambda **kw: admm_tpu_torch.lasso_path(X, y, device="cpu", **kw)
     builder = admm_tpu_torch.admm_lasso(X, y, device="cpu")
+    # The active-set mode is the wide regime's; on tall data it raises the
+    # JAX package's ValueError (tests/test_torch_api_faults.py).
+    Xw, yw = wide
     calls = {
         "penalty_factor": lambda: path(penalty_factor=ones),
         "lower_limits": lambda: path(lower_limits=0.0),
@@ -177,7 +180,8 @@ def test_options_not_ported_raise(tall, option):
         "pmax": lambda: path(pmax=3),
         "trace_len": lambda: path(trace_len=8),
         "data_mesh": lambda: path(data_mesh=object()),
-        "activeset": lambda: path(path_mode="activeset"),
+        "activeset": lambda: admm_tpu_torch.lasso_path(
+            Xw, yw, path_mode="activeset", device="cpu"),
         "activeset_auto": lambda: admm_tpu_torch.lasso_path(
             np.zeros((2, 20000)), np.zeros(2), device="cpu"),
         "adaptive_lasso_path": lambda: admm_tpu_torch.adaptive_lasso_path(
@@ -187,7 +191,8 @@ def test_options_not_ported_raise(tall, option):
         "builder_limits": lambda: builder.penalty(lower_limits=0.0),
         "builder_parallel": lambda: builder.parallel(nthread=2),
         "builder_trace": lambda: builder.opts(trace=True),
-        "builder_activeset": lambda: builder.opts(path_mode="activeset"),
+        "builder_activeset": lambda: admm_tpu_torch.admm_lasso(
+            Xw, yw, device="cpu").opts(path_mode="activeset").fit(),
         "fit_plot": lambda: builder.penalty(nlambda=3).fit().plot(),
     }
     with pytest.raises(NotImplementedError, match="not ported"):
