@@ -4,7 +4,11 @@ A second package beside the JAX one, for one NVIDIA H100.  It holds the
 reference's five exports, the Lasso/Elastic-Net lambda path (tall and
 wide, "scan" and "batch"), LAD and quantile regression, Basis Pursuit
 (one signal or a batch) and the Dantzig selector, and the penalized GLM
-paths (logistic, Huber, Poisson and the family objects).  All six of the
+paths (logistic, Huber, Poisson and the family objects), with glmnet's
+per-coordinate options (penalty factors, coefficient limits, ``exclude``,
+``dfmax``/``pmax``), the adaptive lasso, k-fold cross-validation of the
+gaussian, GLM and Dantzig paths, and ``predict``/``coef``, the path
+summary and ``assess``/``roc``/``confusion``/``c_index``.  All six of the
 JAX package's Pallas TPU kernels are hand-written CUDA kernels here
 (``csrc/``, built with ``nvcc`` at first use)::
 
@@ -15,6 +19,8 @@ JAX package's Pallas TPU kernels are hand-written CUDA kernels here
     admm_tpu_torch.admm_lad(x, y).fit().beta             # dense, intercept first
     admm_tpu_torch.admm_bp(A, b).fit().beta              # sparse (p, 1)
     admm_tpu_torch.logistic_lasso_path(x, labels).coef   # (nlambda, p) tensor
+    cv = admm_tpu_torch.cv_lasso_path(x, y)              # 10 folds
+    admm_tpu_torch.predict(cv, xnew, lam="lambda.min")   # numpy
 
 Public names and call signatures are the JAX package's; ``device`` says
 where numpy inputs go.  The GLM paths take ``dtype`` (float32 by default,
@@ -27,8 +33,11 @@ from __future__ import annotations
 from .api import (ADMMBP, ADMMLAD, ADMMBPFit, ADMMDantzig, ADMMEnet,
                   ADMMLADFit, ADMMLasso, ADMMLassoFit, admm_bp, admm_dantzig,
                   admm_enet, admm_lad, admm_lasso)
+from .assess import assess, c_index, confusion, roc
 from .data.standardize import StdStats
 from .models.bp import BPResult, bp_fit, bp_fit_batch
+from .models.cv import (CVResult, cv_dantzig_path, cv_enet_path,
+                        cv_glm_path, cv_lasso_path, cv_logistic_path)
 from .models.dantzig import dantzig_path
 from .models.glm import (GLMFamily, binomial, binomial_cloglog,
                          binomial_probit, gamma_log, glm_lasso_path, huber,
@@ -38,8 +47,10 @@ from .models.lad import LADResult, lad_fit, quantile_fit
 from .models.lasso import (PathResult, adaptive_lasso_path, enet_path,
                            lasso_path)
 from .models.logistic import logistic_lasso_path
+from .predict import coef, predict
+from .summary import PathTable, deviance, format_path_table, path_table
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "admm_lasso", "admm_enet", "admm_lad", "admm_bp", "admm_dantzig",
@@ -50,5 +61,9 @@ __all__ = [
     "glm_lasso_path", "logistic_lasso_path", "huber_lasso_path",
     "poisson_lasso_path", "GLMFamily", "binomial", "huber", "poisson",
     "binomial_probit", "binomial_cloglog", "gamma_log", "negative_binomial",
-    "PathResult", "LADResult", "BPResult", "StdStats", "__version__",
+    "cv_lasso_path", "cv_enet_path", "cv_logistic_path", "cv_glm_path",
+    "cv_dantzig_path", "predict", "coef", "path_table",
+    "format_path_table", "deviance", "assess", "roc", "confusion",
+    "c_index", "PathResult", "LADResult", "BPResult", "CVResult",
+    "PathTable", "StdStats", "__version__",
 ]

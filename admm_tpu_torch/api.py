@@ -155,20 +155,25 @@ class ADMMLasso:
         self.eps_rel = self._eps_default
         self.rho = self._rho_default
         self.path_mode = "batch"
+        self.penalty_factor = None
+        self.lower_limits = None
+        self.upper_limits = None
 
     # -- chainable setters ------------------------------------------------
     def penalty(self, lambda_=None, nlambda: int = 100,
                 lambda_min_ratio: Optional[float] = None,
                 penalty_factor=None, lower_limits=None,
                 upper_limits=None, **kw):
-        """(reference: R/30_admm_lasso.R:72-96).  ``penalty_factor`` and
-        the coefficient limits are not ported yet and raise."""
-        for name, value in (("penalty_factor", penalty_factor),
-                            ("lower_limits", lower_limits),
-                            ("upper_limits", upper_limits)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} is not ported to admm_tpu_torch yet")
+        """(reference: R/30_admm_lasso.R:72-96).  ``penalty_factor``
+        (glmnet's ``penalty.factor``: nonnegative per-coefficient
+        multipliers, 0 = unpenalized) and ``lower_limits``/``upper_limits``
+        (glmnet's coefficient box; ``lower_limits=0`` is the nonnegative
+        lasso) go to ``lasso_path``."""
+        self.penalty_factor = (None if penalty_factor is None
+                               else np.asarray(penalty_factor,
+                                               np.float64).ravel())
+        self.lower_limits = lower_limits
+        self.upper_limits = upper_limits
         if lambda_ is not None:
             lam = np.sort(np.asarray(lambda_, dtype=np.float64).ravel())[::-1]
             if np.any(lam <= 0):
@@ -238,6 +243,11 @@ class ADMMLasso:
                     eps_rel=self.eps_rel, rho=self.rho,
                     path_mode=self.path_mode, device=self.device)
 
+    def _option_kwargs(self):
+        return dict(penalty_factor=self.penalty_factor,
+                    lower_limits=self.lower_limits,
+                    upper_limits=self.upper_limits)
+
     def _fit_result(self, res) -> ADMMLassoFit:
         return ADMMLassoFit(res.lambdas.detach().cpu().numpy(),
                             _sparse_beta(res.beta0, res.coef),
@@ -246,6 +256,7 @@ class ADMMLasso:
     def fit(self) -> ADMMLassoFit:
         """(reference: R/30_admm_lasso.R:136-160)"""
         return self._fit_result(lasso_path(self.x, self.y,
+                                           **self._option_kwargs(),
                                            **self._path_kwargs()))
 
     def __repr__(self):
@@ -283,6 +294,7 @@ class ADMMEnet(ADMMLasso):
 
     def fit(self) -> ADMMLassoFit:
         return self._fit_result(enet_path(self.x, self.y, alpha=self.alpha,
+                                          **self._option_kwargs(),
                                           **self._path_kwargs()))
 
 
@@ -306,6 +318,10 @@ class ADMMDantzig(ADMMLasso):
         return super().opts(maxit, eps_abs, eps_rel, rho, path_mode, trace)
 
     def fit(self) -> ADMMLassoFit:
+        if any(v is not None for v in self._option_kwargs().values()):
+            raise NotImplementedError(
+                "penalty_factor / coefficient limits are not supported "
+                "for the Dantzig selector")
         return self._fit_result(dantzig_path(self.x, self.y,
                                              **self._path_kwargs()))
 

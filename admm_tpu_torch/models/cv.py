@@ -1,0 +1,572 @@
+"""K-fold cross-validation over the lambda path (counterpart of
+``admm_tpu/models/cv.py``, for the models the port holds: the gaussian
+Lasso/Elastic Net, the GLM families and the Dantzig selector).
+
+Conventions follow glmnet's ``cv.glmnet``: the lambda grid comes from the
+full-data fit; fold f's model is the path fitted without fold f's rows and
+scored on them; errors are aggregated per observation (``cvm`` and its
+standard error ``cvsd``); ``lambda_min`` minimises the curve and
+``lambda_1se`` is the largest lambda within one standard error of it.
+
+``cv_mode="onepass"`` (the default through "auto") is the JAX package's
+protocol: fold f is the WEIGHTED path with weight 0 on its held-out rows
+(exactly the training-subset fit: the weights are renormalized to sum to
+n), and each row's linear predictor is formed on the device by the fold
+that held it out.  The JAX package vmaps the fold axis into one program;
+here the folds are a loop on the device, one path solve per fold, so in
+float32 each fold of a gaussian CV is one launch of the batch kernel
+(``tall_path_batch`` or ``wide_path_batch``; every fold has its own
+standardized design, so folds cannot share a launch as lanes).  Only the
+two (nlambda,) curves come back to the host for the default measures, the
+(n, nlambda) predictors otherwise.  ``cv_mode="loop"`` fits each training
+subset as its own unweighted path.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..interop import to_numpy
+from .lasso import PathResult, _as_tensor, _not_ported, lasso_path
+
+
+class CVResult(NamedTuple):
+    lambdas: np.ndarray     # (nlambda,) the shared grid
+    cvm: np.ndarray         # (nlambda,) mean CV error
+    cvsd: np.ndarray        # (nlambda,) standard error of the CV error
+    lambda_min: float       # grid point minimising cvm
+    lambda_1se: float       # largest lambda with cvm <= min + 1 se
+    fit: PathResult         # full-data path fit on the same grid
+    foldid: np.ndarray      # (n,) fold assignment (-1 = train-only row)
+    # glmnet's keep=TRUE: the (n, nlambda) prevalidated linear predictors
+    # (each row from the fold fit that excluded it), or None.
+    fit_preval: Optional[np.ndarray] = None
+
+
+def _squared_error(eta, y):
+    """Per-observation squared error (gaussian; glmnet type.measure
+    'mse').  ``eta`` is the (nlambda, n_va) linear predictor."""
+    return (eta - y[None, :]) ** 2
+
+
+def binomial_deviance(eta, y):
+    """Per-observation binomial deviance -2[y log p + (1-y) log(1-p)],
+    stably from the linear predictor."""
+    return 2.0 * (np.logaddexp(0.0, eta) - y[None, :] * eta)
+
+
+def _weighted_curves(err, ws, n_sc):
+    """glmnet's cvm and cvsd of an (n, nlambda) per-observation error
+    tensor: weighted mean over the scored rows (``ws`` is 0 elsewhere) and
+    the two-pass standard error; one (2, nlambda) tensor."""
+    sw = torch.sum(ws)
+    cvm = (ws @ err) / sw
+    cvsd = torch.sqrt((ws @ (err - cvm[None, :]) ** 2) / sw
+                      / torch.clamp(n_sc - 1.0, min=1.0))
+    return torch.stack([cvm, cvsd])
+
+
+def _make_family_score_reduce(err_fn):
+    """The device reducer of a family's tensor ``cv_loss_dev``: ``(eta
+    (n, L), y, ws, n_sc) -> (2, L)`` cvm and cvsd."""
+    def reduce(eta, y, ws, n_sc):
+        return _weighted_curves(err_fn(eta.mT, y).mT, ws, n_sc)
+
+    return reduce
+
+
+def _score_reduce_dev(eta, y, ws, n_sc, kind):
+    """cvm and cvsd of the one-pass sweep for mse or mae, reduced on the
+    device so only two (nlambda,) curves go to the host (glmnet's
+    formulas; ``ws`` is the scoring weight, 0 on unscored rows)."""
+    r = eta - y[:, None]
+    err = r * r if kind == "mse" else torch.abs(r)
+    return _weighted_curves(err, ws, n_sc)
+
+
+def _resolve_measure(type_measure, fam, default_loss):
+    """glmnet's ``type.measure`` -> a per-observation numpy ``loss(eta,
+    y)`` (or the 'auc' sentinel, scored per fold) and the sense of
+    "better" ('min' or 'max').
+
+    Gaussian (``fam`` None): 'default'/'mse', 'deviance' (= mse), 'mae'.
+    GLM families: 'default'/'deviance' (the family's CV loss),
+    'mse'/'mae' on the response scale, and for binomial links 'class'
+    (misclassification at a mean of 1/2) and 'auc' (per fold).
+    """
+    if type_measure in ("default", None):
+        return default_loss, "min"
+    name = getattr(fam, "name", "gaussian") if fam is not None \
+        else "gaussian"
+
+    def response(eta):
+        # Family objects carry their own inverse link (mean_eta).
+        if fam is not None and getattr(fam, "mean_eta", None) is not None:
+            return fam.mean_eta(eta)
+        if name == "binomial":
+            return 1.0 / (1.0 + np.exp(-eta))
+        if name == "poisson":
+            return np.exp(eta)
+        return eta
+
+    if type_measure == "deviance":
+        if fam is None:
+            return _squared_error, "min"      # gaussian deviance == mse
+        return default_loss, "min"
+    if type_measure == "mse":
+        return (lambda eta, y: (response(eta) - y[None, :]) ** 2), "min"
+    if type_measure == "mae":
+        return (lambda eta, y:
+                np.abs(response(eta) - y[None, :])), "min"
+    if type_measure == "class":
+        if not name.startswith("binomial"):
+            raise ValueError("type_measure='class' needs a binomial "
+                             "family (or cv_multinomial_path)")
+        # Every binomial link's inverse is increasing through a mean of
+        # 1/2, so thresholding the response is link-correct.
+        return (lambda eta, y:
+                ((response(eta) > 0.5).astype(float) != y[None, :])
+                .astype(float)), "min"
+    if type_measure == "auc":
+        if not name.startswith("binomial"):
+            raise ValueError(
+                "type_measure='auc' needs a binomial family")
+        return "auc", "max"
+    raise ValueError(
+        f"unknown type_measure {type_measure!r}; choose from "
+        "'default', 'deviance', 'mse', 'mae', 'class', 'auc'")
+
+
+def _fold_auc(eta_all, y, foldid, nfolds, w=None):
+    """Per-fold AUC (Mann-Whitney, glmnet's type.measure='auc'): returns
+    (cvraw (nfolds, L), fold_w (nfolds,)), weight 0 for a fold holding a
+    single class (its AUC is undefined)."""
+    from scipy.stats import rankdata
+
+    L = eta_all.shape[1]
+    cvraw = np.zeros((nfolds, L))
+    fold_w = np.zeros(nfolds)
+    for f in range(nfolds):
+        va = foldid == f
+        yv = y[va]
+        npos = int((yv == 1).sum())
+        nneg = int((yv == 0).sum())
+        if npos == 0 or nneg == 0:
+            continue
+        ranks = np.apply_along_axis(rankdata, 0, eta_all[va])
+        rpos = ranks[yv == 1].sum(axis=0)
+        cvraw[f] = (rpos - npos * (npos + 1) / 2.0) / (npos * nneg)
+        fold_w[f] = float(va.sum()) if w is None else float(w[va].sum())
+    if fold_w.sum() == 0:
+        raise ValueError("AUC is undefined in every fold (each fold "
+                         "held a single class); use fewer folds")
+    return cvraw, fold_w
+
+
+def _fold_sweep(X, masks, fid, solve_fold):
+    """The one-pass fold sweep: fold f's path is ``solve_fold(mask_f)``
+    (the weighted path, weight 0 on fold f's rows); each row keeps the
+    (nlambda,) linear predictor of the fold that held it out (``fid``, a
+    numpy array, is the clipped foldid, so a train-only row takes fold
+    0's).  Returns the (n, nlambda) predictors on X's device.  The rows of
+    every fold go to the device once, before the first solve; one fold's
+    standardized design is alive at a time."""
+    n = X.shape[0]
+    order = np.argsort(fid, kind="stable")
+    edges = np.searchsorted(fid[order], np.arange(masks.shape[0] + 1))
+    order = torch.as_tensor(order, device=X.device)
+    eta = None
+    for f in range(masks.shape[0]):
+        res = solve_fold(masks[f])
+        rows = order[int(edges[f]):int(edges[f + 1])]
+        if eta is None:
+            eta = torch.empty((n, res.coef.shape[0]), dtype=res.coef.dtype,
+                              device=X.device)
+        eta[rows] = res.beta0[None, :] + X[rows] @ res.coef.mT
+        del res
+    return eta
+
+
+def _make_gaussian_fold_eta(alpha, enet_scale, standardize, intercept,
+                            solver_kw):
+    """The gaussian Lasso/Enet fold sweep: ``run(X, y, lams, masks, fid)
+    -> (n, nlambda)`` own-fold predictors; every fold solves with
+    ``path_mode="batch"`` and sees exactly the full fit's normalized
+    factors and box (``exclude`` merged in)."""
+    from .lasso import _path_user, validate_pf_limits
+
+    def run(X, y, lams, masks, fid):
+        pf, lim = validate_pf_limits(
+            solver_kw.get("penalty_factor"), solver_kw.get("exclude"),
+            solver_kw.get("lower_limits"), solver_kw.get("upper_limits"),
+            X.shape[1], X.dtype, X.device)
+        return _fold_sweep(X, masks, fid, lambda mask: _path_user(
+            X, y, lams, solver_kw.get("rho", -1.0),
+            solver_kw.get("maxit", 10000), solver_kw.get("eps_abs", 1e-5),
+            solver_kw.get("eps_rel", 1e-5), alpha, mask, pf, lim,
+            standardize_x=standardize, intercept=intercept,
+            enet_scale=enet_scale, path_mode="batch"))
+
+    return run
+
+
+def _make_glm_fold_eta(fam, alpha, standardize, intercept, maxit,
+                       eps_abs, eps_rel, rho, path_mode,
+                       newton_steps=None, penalty_factor=None,
+                       lower_limits=None, upper_limits=None, exclude=None,
+                       offset=None):
+    """The fold sweep of any GLM family (same contract as
+    :func:`_make_gaussian_fold_eta`): fold f is the weighted GLM path
+    with weight 0 on its held-out rows, which takes the engine (the GLM
+    kernel takes no observation weights).  ``offset`` enters every fold
+    fit and the returned predictors."""
+    from .glm import _glm_path
+    from .lasso import validate_pf_limits
+
+    steps = _default_newton_steps(fam, newton_steps)
+
+    def run(X, y, lams, masks, fid):
+        pf, lim = validate_pf_limits(penalty_factor, exclude, lower_limits,
+                                     upper_limits, X.shape[1], X.dtype,
+                                     X.device)
+        off = (None if offset is None
+               else _as_tensor(offset, X.dtype, X.device).reshape(-1))
+        eta = _fold_sweep(X, masks, fid, lambda mask: _glm_path(
+            X, y, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, alpha, mask,
+            off, pf, lim, family=fam, standardize_x=standardize,
+            intercept=intercept, path_mode=path_mode, newton_steps=steps))
+        return eta if off is None else eta + off[:, None]
+
+    return run
+
+
+def _default_newton_steps(fam, newton_steps):
+    """The family's shipped x-update default (one Newton step for
+    poisson) unless overridden."""
+    from .glm import _NEWTON_STEPS
+
+    if newton_steps is not None:
+        return int(newton_steps)
+    return 1 if getattr(fam, "name", "") == "poisson" else _NEWTON_STEPS
+
+
+def _cv_foldid(n, nfolds, seed, foldid):
+    """Fold assignment (glmnet's conventions, -1 = train-only row):
+    ``(foldid, nfolds)``.  Without an explicit ``foldid`` rows are dealt
+    round-robin over a permutation (``np.random.default_rng(seed)``), so
+    fold sizes differ by at most one; an explicit one defines nfolds."""
+    if foldid is None:
+        if not 2 <= nfolds <= n:
+            raise ValueError("nfolds must be in [2, nrow(x)]")
+        rng = np.random.default_rng(seed)
+        foldid = np.resize(np.arange(nfolds, dtype=np.int64), n)
+        foldid = foldid[rng.permutation(n)]
+    else:
+        foldid = np.asarray(foldid, np.int64)
+        if foldid.shape != (n,):
+            raise ValueError("foldid must have one entry per row")
+        nfolds = int(foldid.max()) + 1
+        counts = np.bincount(foldid[foldid >= 0], minlength=nfolds)
+        if nfolds < 2 or np.any(counts == 0):
+            raise ValueError(
+                "foldid must assign at least one row to each of >= 2 "
+                f"folds (got counts {counts.tolist()})")
+    return foldid, nfolds
+
+
+def _cv_curve(per_obs, foldid, w=None):
+    """cvm and cvsd from an (n, nlambda) per-observation loss matrix
+    (glmnet's aggregation over the scored rows, optionally weighted)."""
+    scored = foldid >= 0
+    n_sc = int(scored.sum())
+    if w is None:
+        cvm = per_obs[scored].mean(axis=0)
+        cvsd = np.sqrt(((per_obs[scored] - cvm) ** 2).mean(axis=0)
+                       / (n_sc - 1))
+    else:
+        ws = np.asarray(w, np.float64).ravel()[scored]
+        cvm = (ws[:, None] * per_obs[scored]).sum(axis=0) / ws.sum()
+        cvsd = np.sqrt((ws[:, None] * (per_obs[scored] - cvm) ** 2)
+                       .sum(axis=0) / ws.sum() / (n_sc - 1))
+    return cvm, cvsd
+
+
+def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
+                  lambda_min_ratio: Optional[float] = None,
+                  lambdas=None, alpha: float = 1.0,
+                  _enet_scale: bool = False, standardize: bool = True,
+                  intercept: bool = True, seed: int = 0, foldid=None,
+                  path_mode: str = "batch", cv_mode: str = "auto",
+                  weights=None, offset=None, type_measure: str = "default",
+                  keep: bool = False, _path_fn=None, _loss_fn=None,
+                  _fold_eta_fn=None, _family=None, device="cuda",
+                  **solver_kw) -> CVResult:
+    """Cross-validated Lasso/Elastic-Net path.
+
+    Same arguments and defaults as ``admm_tpu.cv_lasso_path``, plus
+    ``device``: a tensor ``X`` stays on its own device, anything else goes
+    to ``device``; ``solver_kw`` (``rho``, ``maxit``, ``eps_abs``,
+    ``eps_rel``, ``dtype``, ``penalty_factor``, ``lower_limits``, ...)
+    passes to every path solve.
+
+    Folds are dealt as in ``cv.glmnet`` (``seed``), or given by
+    ``foldid`` (which then defines nfolds; -1 rows train every fold and
+    are never scored).  ``cv_mode``: "onepass" (the default through
+    "auto") solves fold f as the weighted path with weight 0 on its rows,
+    fold after fold on the device; "loop" fits each training subset.
+    The full fit follows ``path_mode``; the folds always solve all lambdas
+    at once ("batch").  ``weights`` weight the full fit, every fold fit
+    and the aggregation; ``offset`` is the gaussian response shift.
+    ``type_measure``: 'default'/'mse'/'deviance' or 'mae' here (the GLM
+    drivers add 'class' and 'auc').  ``keep`` returns the (n, nlambda)
+    prevalidated predictors in ``fit_preval``.
+
+    Not ported yet, and raising ``NotImplementedError`` when given:
+    ``fold_mesh`` (the fold axis sharded over devices).
+    """
+    _not_ported(fold_mesh=solver_kw.pop("fold_mesh", None))
+    dtype = solver_kw.get("dtype") or torch.float32
+    X = _as_tensor(X, dtype, device)
+    n, p = X.shape
+    y = np.asarray(to_numpy(y), np.float64).ravel()
+    if offset is not None:
+        # glmnet's gaussian offset shifts every fold fit and the held-out
+        # residual alike: shifting y once reproduces its cvm/cvsd.
+        if _family is not None or _loss_fn is not None:
+            raise ValueError("offset= here is the gaussian response "
+                             "shift; GLM CV drivers take their own "
+                             "offset argument")
+        off_g = np.asarray(to_numpy(offset), np.float64).ravel()
+        if off_g.shape != y.shape:
+            raise ValueError("offset must have one entry per row")
+        y = y - off_g
+    else:
+        off_g = None
+    w = None if weights is None else np.asarray(to_numpy(weights),
+                                                np.float64).ravel()
+    if w is not None and w.shape != (n,):
+        raise ValueError("weights must have one entry per row")
+    if cv_mode not in ("auto", "onepass", "loop"):
+        raise ValueError("cv_mode must be 'auto', 'onepass' or 'loop'")
+    # Cheap validation before the full fit; an explicit foldid defines
+    # nfolds (glmnet).
+    foldid, nfolds = _cv_foldid(n, nfolds, seed, foldid)
+    y_t = torch.as_tensor(y, dtype=dtype, device=X.device)
+
+    is_default_path = _path_fn is None
+    if is_default_path:
+        def _path_fn(Xf, yf, lambdas, wf=None):
+            return lasso_path(Xf, yf, lambdas=lambdas, nlambda=nlambda,
+                              lambda_min_ratio=lambda_min_ratio,
+                              alpha=alpha, _enet_scale=_enet_scale,
+                              standardize=standardize,
+                              intercept=intercept, path_mode=path_mode,
+                              weights=wf, device=X.device, **solver_kw)
+    elif w is not None and _fold_eta_fn is None:
+        raise ValueError(
+            "weights are supported only for CV drivers with a "
+            "one-pass fold solver (gaussian / GLM families)")
+    full = _path_fn(X, y_t, lambdas, w)
+
+    loss, sense = _resolve_measure(
+        type_measure, _family,
+        (_loss_fn if _loss_fn is not None
+         else _family.cv_loss if _family is not None
+         else _squared_error))
+    fold_eta = _fold_eta_fn
+    if fold_eta is None and is_default_path and cv_mode != "loop":
+        fold_eta = _make_gaussian_fold_eta(alpha, _enet_scale, standardize,
+                                           intercept, solver_kw)
+    if cv_mode == "onepass" and fold_eta is None:
+        raise ValueError("cv_mode='onepass' needs a one-pass fold "
+                         "solver; this CV driver has none — use "
+                         "cv_mode='loop'")
+    lams = to_numpy(full.lambdas).astype(np.float64)
+    scored = foldid >= 0
+    n_sc = int(scored.sum())
+    cvm = cvsd = eta_all = None
+    if fold_eta is not None and cv_mode != "loop":
+        masks = (foldid[None, :]
+                 != np.arange(nfolds)[:, None]).astype(np.float64)
+        if w is not None:
+            masks = masks * w[None, :]
+        eta_dev = fold_eta(
+            X, y_t, full.lambdas,
+            torch.as_tensor(masks, dtype=dtype, device=X.device),
+            np.clip(foldid, 0, None))
+        # Default measures without keep: score on the device, and only
+        # the two curves cross to the host.
+        dev_reduce = None
+        if not keep and _loss_fn is None:
+            if (_family is None
+                    and type_measure in ("default", None, "mse", "mae")):
+                kind = "mae" if type_measure == "mae" else "mse"
+                dev_reduce = lambda e, yy, ws, ns: _score_reduce_dev(
+                    e, yy, ws, ns, kind)
+            elif (_family is not None
+                  and type_measure in ("default", None, "deviance")
+                  and getattr(_family, "cv_loss_dev", None) is not None):
+                dev_reduce = _make_family_score_reduce(_family.cv_loss_dev)
+        if dev_reduce is not None:
+            ws = scored.astype(np.float64)
+            if w is not None:
+                ws = ws * w
+            curves = to_numpy(dev_reduce(
+                eta_dev, y_t, torch.as_tensor(ws, dtype=dtype,
+                                              device=X.device),
+                torch.tensor(float(n_sc), dtype=dtype,
+                             device=X.device))).astype(np.float64)
+            cvm, cvsd = curves[0], curves[1]
+        else:
+            eta_all = to_numpy(eta_dev)
+    else:
+        X_np = to_numpy(X).astype(np.float64)
+        eta_all = np.full((n, lams.shape[0]), np.nan)
+        for f in range(nfolds):
+            tr = torch.as_tensor(np.flatnonzero(foldid != f),
+                                 device=X.device)
+            va = foldid == f
+            res = _path_fn(X[tr], y_t[tr], lams,
+                           None if w is None else w[foldid != f])
+            eta_all[va] = (to_numpy(res.beta0).astype(np.float64)[:, None]
+                           + to_numpy(res.coef).astype(np.float64)
+                           @ X_np[va].T).T
+
+    if cvm is not None:
+        pass  # scored on the device above
+    elif loss == "auc":
+        # A per-FOLD measure (glmnet): fold AUCs aggregated with the
+        # folds' sample weights; larger is better.
+        cvraw, fold_w = _fold_auc(eta_all, y, foldid, nfolds, w)
+        fw = fold_w / fold_w.sum()
+        cvm = fw @ cvraw
+        nf_eff = int((fold_w > 0).sum())
+        cvsd = np.sqrt((fw @ (cvraw - cvm) ** 2) / max(nf_eff - 1, 1))
+    else:
+        cvm, cvsd = _cv_curve(loss(eta_all.T, y).T, foldid, w)
+    if sense == "max":
+        i_min = int(np.argmax(cvm))
+        within = cvm >= cvm[i_min] - cvsd[i_min]
+    else:
+        i_min = int(np.argmin(cvm))
+        within = cvm <= cvm[i_min] + cvsd[i_min]
+    lambda_min = float(lams[i_min])
+    lambda_1se = float(lams[np.flatnonzero(within)[0]])  # grid decreasing
+
+    if keep and off_g is not None:
+        # glmnet's buildPredmat: the prevalidated predictors carry the
+        # offset, so scoring them against the original y reproduces cvm.
+        eta_all = eta_all + off_g[:, None]
+    return CVResult(lambdas=lams, cvm=cvm, cvsd=cvsd,
+                    lambda_min=lambda_min, lambda_1se=lambda_1se,
+                    fit=full, foldid=foldid,
+                    fit_preval=eta_all if keep else None)
+
+
+def cv_enet_path(X, y, *, alpha: float = 1.0, **kw) -> CVResult:
+    """Cross-validated Elastic-Net path (lambda0 inflation as in
+    reference: src/ADMMEnet.h:56)."""
+    return cv_lasso_path(X, y, alpha=alpha, _enet_scale=True, **kw)
+
+
+def cv_logistic_path(X, y, **kw) -> CVResult:
+    """Cross-validated sparse logistic regression path, scored by the
+    binomial deviance (glmnet's default for family='binomial'): the
+    binomial case of :func:`cv_glm_path`."""
+    from .glm import binomial
+
+    return cv_glm_path(X, y, binomial(), **kw)
+
+
+def cv_glm_path(X, y, family, *, nlambda: int = 50,
+                lambda_min_ratio: float = 1e-2, alpha: float = 1.0,
+                standardize: bool = True, intercept: bool = True,
+                maxit: int = 10000, eps_abs: float = 1e-5,
+                eps_rel: float = 1e-5, rho: float = -1.0,
+                path_mode: str = "auto", loss=None,
+                newton_steps: Optional[int] = None,
+                penalty_factor=None, lower_limits=None,
+                upper_limits=None, exclude=None, offset=None,
+                device="cuda", **kw) -> CVResult:
+    """Cross-validated path for any GLM family
+    (:mod:`admm_tpu_torch.models.glm`), same arguments and defaults as
+    ``admm_tpu.cv_glm_path`` plus ``device``; ``dtype`` (float32 by
+    default) may ride ``kw``.  Held-out rows are scored by the family's
+    per-observation loss at the linear predictor (on the device) unless
+    ``loss(eta, y)`` is given; ``type_measure`` and the fold protocol are
+    :func:`cv_lasso_path`'s.  The full fit of a binomial or huber path in
+    float32 is one launch of the GLM kernel; the folds are weighted, so
+    they take the engine."""
+    from .glm import GLMFamily, glm_lasso_path
+
+    fam = family() if not isinstance(family, GLMFamily) else family
+    if offset is not None and kw.get("cv_mode") == "loop":
+        raise ValueError("offset with cv_mode='loop' is not supported; "
+                         "use the default one-pass fold sweep")
+    steps = _default_newton_steps(fam, newton_steps)
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return glm_lasso_path(Xf, yf, fam, lambdas=lambdas,
+                              nlambda=nlambda,
+                              lambda_min_ratio=lambda_min_ratio,
+                              alpha=alpha, standardize=standardize,
+                              intercept=intercept, maxit=maxit,
+                              eps_abs=eps_abs, eps_rel=eps_rel, rho=rho,
+                              path_mode=path_mode, weights=wf,
+                              offset=offset, penalty_factor=penalty_factor,
+                              lower_limits=lower_limits,
+                              upper_limits=upper_limits, exclude=exclude,
+                              newton_steps=steps, dtype=dtype,
+                              device=device)
+
+    fold_eta = _make_glm_fold_eta(fam, alpha, standardize, intercept,
+                                  maxit, eps_abs, eps_rel, rho, path_mode,
+                                  newton_steps=newton_steps,
+                                  penalty_factor=penalty_factor,
+                                  lower_limits=lower_limits,
+                                  upper_limits=upper_limits,
+                                  exclude=exclude, offset=offset)
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         standardize=standardize, intercept=intercept,
+                         _path_fn=path_fn, _loss_fn=loss,
+                         _fold_eta_fn=fold_eta, _family=fam, device=device,
+                         **kw)
+
+
+def cv_dantzig_path(X, y, *, nlambda: int = 100,
+                    lambda_min_ratio: Optional[float] = None,
+                    standardize: bool = True, intercept: bool = True,
+                    maxit: int = 10000, eps_abs: float = 1e-5,
+                    eps_rel: float = 1e-5, rho: float = -1.0,
+                    path_mode: str = "batch", device="cuda",
+                    **kw) -> CVResult:
+    """Cross-validated Dantzig-selector path (same fold protocol as
+    :func:`cv_lasso_path`, scored by held-out MSE; the folds run the
+    weighted engine, which has no kernel), plus ``device``."""
+    from .dantzig import _dpath_user, dantzig_path
+
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return dantzig_path(Xf, yf, lambdas=lambdas, nlambda=nlambda,
+                            lambda_min_ratio=lambda_min_ratio,
+                            standardize=standardize, intercept=intercept,
+                            maxit=maxit, eps_abs=eps_abs, eps_rel=eps_rel,
+                            rho=rho, path_mode=path_mode, weights=wf,
+                            dtype=dtype, device=device)
+
+    def fold_eta(Xf, yf, lams, masks, fid):
+        return _fold_sweep(Xf, masks, fid, lambda mask: _dpath_user(
+            Xf, yf, lams, rho, maxit, eps_abs, eps_rel, mask,
+            standardize_x=standardize, intercept=intercept,
+            path_mode="batch"))
+
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         standardize=standardize, intercept=intercept,
+                         _path_fn=path_fn, _fold_eta_fn=fold_eta,
+                         device=device, **kw)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
-Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector and
-the penalized GLM paths (logistic, Huber, Poisson).
+Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector,
+the penalized GLM paths (logistic, Huber, Poisson), cross-validation and
+prediction.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,13 @@ Phases, in order:
    the same inputs and must give identical bits (LAD at both sizes);
 4. the main paths through the public entry points on the card, with every
    launch count set to 0 before and read after, each call's result held
-   against the port's float64 engine run on the card;
+   against the port's float64 engine run on the card; then "cv, options
+   and prediction" (:func:`cv_phase`): ``cv_lasso_path`` tall and wide
+   with 10 folds (exactly 11 batch-kernel launches each),
+   ``cv_logistic_path``, a penalty-factor-and-box path and the adaptive
+   lasso (no launch), each against its float64 run, ``predict`` and
+   ``assess`` on the tall CV, their end-to-end times and the tall CV's
+   stages;
 5. kernel and plain times, and each entry point end to end: median of 5
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
@@ -192,6 +199,204 @@ class Smoke:
         print(f"  {'ok  ' if ok else 'FAIL'} {what}", flush=True)
         if not ok:
             self.failures.append(what)
+
+
+def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
+    """Phase 4b: ``cv_lasso_path`` at 10000 x 1000 and 1000 x 2000 (100
+    lambdas, 10 folds; one batch-kernel launch for the full fit and one per
+    fold), ``cv_logistic_path`` at 2000 x 200 (the GLM kernel for the full
+    fit, the engine for the weighted folds), a penalty-factor-and-box path
+    and the adaptive lasso at 10000 x 1000 (the engine, no kernel), then
+    ``predict`` and ``assess`` on the tall CV.  Each call runs with the
+    launch counts at 0 just before it and read just after; they add to the
+    kernels' ``launches``.  Every result is held against the port's
+    float64 run on the card; times are medians of 3 after a warm-up, and
+    the tall CV gets a stage breakdown."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch import kernels
+    from admm_tpu_torch.data.standardize import recover, standardize
+    from admm_tpu_torch.kernels import tall_path
+    from admm_tpu_torch.models.cv import _cv_foldid, _score_reduce_dev
+    from admm_tpu_torch.models.lasso import _tall_setup
+
+    print("phase: cv, options and prediction", flush=True)
+    f64 = dict(dtype=torch.float64)
+    pf = np.random.default_rng(123).uniform(0.5, 1.5, X.shape[1])
+    nfolds = 10
+    # (label, the only kernel that may launch, its launches, call, float64)
+    calls = [
+        (f"cv_lasso_path(X, y, nfolds={nfolds})  [{X.shape[0]} x "
+         f"{X.shape[1]} x 100, tall batch]", "tall_path_batch", nfolds + 1,
+         lambda: t.cv_lasso_path(X, y, nfolds=nfolds),
+         lambda: t.cv_lasso_path(X, y, nfolds=nfolds, **f64)),
+        (f"cv_lasso_path(Xw, yw, nfolds={nfolds})  [{Xw.shape[0]} x "
+         f"{Xw.shape[1]} x 100, wide batch]", "wide_path_batch", nfolds + 1,
+         lambda: t.cv_lasso_path(Xw, yw, nfolds=nfolds),
+         lambda: t.cv_lasso_path(Xw, yw, nfolds=nfolds, **f64)),
+        (f"cv_logistic_path(Xg, yg, nlambda={kg}, nfolds={nfolds})  "
+         f"[{Xg.shape[0]} x {Xg.shape[1]}, folds on the engine]",
+         "glm_batch_path", 1,
+         lambda: t.cv_logistic_path(Xg, yg, nlambda=kg, nfolds=nfolds),
+         lambda: t.cv_logistic_path(Xg, yg, nlambda=kg, nfolds=nfolds,
+                                    **f64)),
+        ("lasso_path(X, y, penalty_factor=pf, lower_limits=0.0, "
+         "path_mode='batch')  [engine]", None, 0,
+         lambda: t.lasso_path(X, y, penalty_factor=pf, lower_limits=0.0,
+                              path_mode="batch"),
+         lambda: t.lasso_path(X, y, penalty_factor=pf, lower_limits=0.0,
+                              path_mode="batch", **f64)),
+        ("adaptive_lasso_path(X, y)  [scan, engine]", None, 0,
+         lambda: t.adaptive_lasso_path(X, y),
+         lambda: t.adaptive_lasso_path(X, y, **f64)),
+    ]
+    outs = []
+    for label, kname, want, call, _ in calls:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        expect = dict.fromkeys(after, 0)
+        if kname is not None:
+            expect[kname] = want
+        smoke.check(after == expect, f"{label}: launches {after} "
+                    f"(want {kname or 'none'} x {want})")
+        for name, launched in after.items():
+            record[name]["launches"] += launched
+        print(f"  {label}: first call {first_s:.2f} s on the host clock")
+        outs.append(out)
+
+    def idx(cv, lam):
+        return int(np.argmin(np.abs(cv.lambdas - lam)))
+
+    def to_np(v):
+        return v.detach().cpu().numpy().astype(np.float64)
+
+    for (label, _, _, _, ref_call), out in zip(calls, outs):
+        ref = ref_call()
+        fit, fit_ref = (out.fit, ref.fit) if hasattr(out, "fit") else (out,
+                                                                        ref)
+        gap = float(np.abs(to_np(fit.coef) - to_np(fit_ref.coef)).max())
+        gap0 = float(np.abs(to_np(fit.beta0) - to_np(fit_ref.beta0)).max())
+        finite = bool(np.isfinite(to_np(fit.coef)).all())
+        print(f"  {label}: full fit max |coef - f64| {gap:.3e}, |beta0 gap| "
+              f"{gap0:.3e}, niter total {int(fit.niter.sum())} (f64 "
+              f"{int(fit_ref.niter.sum())})")
+        smoke.check(finite and fit.coef.shape == fit_ref.coef.shape,
+                    f"{label}: finite, {fit.coef.shape[0]} lambdas")
+        smoke.check(gap <= PATH_BAR and gap0 <= PATH_BAR,
+                    f"{label}: full fit within {PATH_BAR} of float64")
+        if not hasattr(out, "fit"):
+            continue
+        rel = float(np.max(np.abs(out.cvm - ref.cvm) / np.abs(ref.cvm)))
+        rel_sd = float(np.max(np.abs(out.cvsd - ref.cvsd) / np.abs(ref.cvsd)))
+        print(f"  {label}: cvm max rel gap {rel:.3e}, cvsd {rel_sd:.3e}; "
+              f"lambda_min {out.lambda_min:.6g} (index "
+              f"{idx(out, out.lambda_min)}, f64 {idx(ref, ref.lambda_min)}), "
+              f"lambda_1se {out.lambda_1se:.6g} (index "
+              f"{idx(out, out.lambda_1se)}, f64 {idx(ref, ref.lambda_1se)}), "
+              f"min cvm {out.cvm.min():.6f}")
+        smoke.check(np.isfinite(out.cvm).all() and np.all(out.cvsd >= 0)
+                    and out.cvm.shape == (fit.coef.shape[0],),
+                    f"{label}: finite curves of the grid's length")
+        smoke.check(rel <= 1e-4, f"{label}: cvm within rtol 1e-4 of float64")
+        for key in ("lambda_min", "lambda_1se"):
+            i, j = idx(out, getattr(out, key)), idx(ref, getattr(ref, key))
+            tie = abs(ref.cvm[i] - ref.cvm[j]) <= 1e-5 * abs(ref.cvm[j])
+            smoke.check(i == j or tie, f"{label}: {key} at float64's grid "
+                        f"point, or a tie of cvm within rtol 1e-5")
+
+    # predict and assess on the tall CV, from numpy on the host.
+    cv = outs[0]
+    i = idx(cv, cv.lambda_min)
+    eta = t.predict(cv, X, lam="lambda.min")
+    want = (to_np(cv.fit.beta0)[i]
+            + X.astype(np.float64) @ to_np(cv.fit.coef)[i])
+    pgap = float(np.abs(eta - want).max())
+    print(f"  predict(cv, X, lam='lambda.min'): shape {eta.shape}, max |eta "
+          f"- (beta0 + X coef)| {pgap:.3e}")
+    smoke.check(eta.shape == (X.shape[0],) and pgap <= 1e-9,
+                "predict(cv, X, lam='lambda.min') = beta0 + X coef at it")
+    a = t.assess(cv, X, y)
+    print(f"  assess(cv, X, y) at lambda.1se: "
+          + ", ".join(f"{k} {float(v):.6f}" for k, v in a.items()))
+    smoke.check(sorted(a) == ["deviance", "mae", "mse"]
+                and all(np.isfinite(float(v)) for v in a.values()),
+                "assess(cv, X, y) runs")
+
+    # One fold's kernel against its plain form (the weighted fold's own
+    # Minv and grid), outside the counted calls.
+    Xt, yt = torch.as_tensor(X, **f32), torch.as_tensor(y, **f32)
+    n = X.shape[0]
+    foldid = _cv_foldid(n, nfolds, 0, None)[0]
+    masks = torch.as_tensor((foldid[None, :] != np.arange(nfolds)[:, None])
+                            .astype(np.float32), device=Xt.device)
+
+    def fold_setup(f):
+        Xs, ys, st = standardize(Xt, yt, standardize_x=True, intercept=True,
+                                 weights=masks[f])
+        ilams = cv.fit.lambdas * n / st.scale_y
+        Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], -1.0)
+        return st, (Minv.contiguous(), Xty.contiguous(), ilams.contiguous(),
+                    rho, EPS, EPS, 1.0, MAXIT)
+
+    _, args0 = fold_setup(0)
+    zk, nk = tall_path.tall_path_batch(*args0)
+    zp, np_ = tall_path.tall_path_batch_reference(*args0)
+    fgap = float((zk - zp).abs().max())
+    lane_gap = int((nk - np_).abs().max())
+    print(f"  tall_path_batch on fold 0's inputs: max |coef gap| {fgap:.3e}, "
+          f"niter total {int(nk.sum())}, max lane gap {lane_gap}")
+    smoke.check(fgap <= COEF_BAR and lane_gap <= 1,
+                f"fold 0: kernel within {COEF_BAR} of plain, niter within 1")
+
+    # End to end, median of 3 after a warm-up (CUDA events).
+    for label, _, _, call, _ in calls:
+        print(f"  end to end {label}: "
+              f"{cuda_median_ms(torch, call, reps=3):.3f} ms (median of 3)")
+    predict_ms = cuda_median_ms(
+        torch, lambda: t.predict(cv, X, lam="lambda.min"), reps=3)
+    assess_ms = cuda_median_ms(torch, lambda: t.assess(cv, X, y), reps=3)
+    print(f"  end to end predict(cv, X, lam='lambda.min'): {predict_ms:.3f} "
+          f"ms; assess(cv, X, y): {assess_ms:.3f} ms (medians of 3)")
+
+    # Stages of the tall cv_lasso_path, host clock to a synchronize.
+    title = f"cv_lasso_path {n} x {X.shape[1]} x 100, {nfolds} folds"
+    ms = {}
+
+    def stage(name, fn, reps=3):
+        ms[name], out = host_median_ms(torch, fn, reps=reps)
+        print(f"  {title} | {name}: {ms[name]:.3f} ms")
+        return out
+
+    stage("numpy -> device copy of X, y",
+          lambda: (torch.as_tensor(X, **f32), torch.as_tensor(y, **f32)))
+    full = stage("full fit (lasso_path, batch: standardize, grid, "
+                 "_tall_setup, kernel, recover)",
+                 lambda: t.lasso_path(Xt, yt, path_mode="batch"))
+    setups = stage("fold setups (weighted standardize, _tall_setup) x "
+                   f"{nfolds}", lambda: [fold_setup(f) for f in range(nfolds)])
+    sols = stage(f"fold kernels (tall_path_batch) x {nfolds}",
+                 lambda: [tall_path.tall_path_batch(*a) for _, a in setups])
+
+    rows = [torch.as_tensor(np.flatnonzero(foldid == f), device=Xt.device)
+            for f in range(nfolds)]
+
+    def own_fold_eta():
+        eta = torch.empty((n, full.coef.shape[0]), **f32)
+        for f, ((st, _), (z, _)) in enumerate(zip(setups, sols)):
+            beta0, coef = recover(st, z, standardize_x=True, intercept=True)
+            eta[rows[f]] = beta0[None, :] + Xt[rows[f]] @ coef.mT
+        return eta
+
+    eta_d = stage("recover, own-fold predictors", own_fold_eta)
+    ws = torch.ones(n, **f32)
+    curves = stage("scoring (_score_reduce_dev)", lambda: _score_reduce_dev(
+        eta_d, yt, ws, torch.tensor(float(n), **f32), "mse"))
+    stage("curves to the host", lambda: curves.cpu().numpy())
+    print(f"  {title} | sum: {sum(ms.values()):.3f} ms")
+    del setups, sols, eta_d
 
 
 def main() -> int:
@@ -685,6 +890,9 @@ def main() -> int:
         if label in glm_labels:
             smoke.check(gap0 <= PATH_BAR,
                         f"{label}: intercepts within {PATH_BAR} of float64")
+
+    # 4b. Cross-validation, the Lasso's options and prediction.
+    cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg["logistic"], kg, f32)
 
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "

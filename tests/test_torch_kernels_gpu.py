@@ -867,3 +867,23 @@ def test_tall_batch_kernel_largest_p(dev):
         tall_path.tall_path_batch(torch.zeros((p + 1, p + 1), device=dev),
                                   torch.zeros((p + 1,), device=dev), ilams,
                                   rho, 1e-9, 1e-9, 1.0, 3)
+
+
+def test_tall_cv_gives_the_same_bits_twice(dev):
+    """``cv_lasso_path`` on the card: the full fit and every fold are
+    launches of the tall batch kernel (1 + nfolds), and a second call on
+    the same inputs gives the same cvm to the bit."""
+    from admm_tpu_torch.models.cv import cv_lasso_path
+
+    rng = np.random.default_rng(5)
+    n, p = 400, 40
+    X = rng.normal(size=(n, p))
+    y = X[:, :5] @ np.array([1.5, -1.0, 0.8, 0.5, -0.3]) + rng.normal(size=n)
+    kernels.reset_launch_counts()
+    runs = [cv_lasso_path(X, y, nfolds=5, nlambda=20, device=dev)
+            for _ in range(2)]
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "tall_path_batch": 12}
+    assert np.array_equal(runs[0].cvm, runs[1].cvm)
+    assert np.array_equal(runs[0].cvsd, runs[1].cvsd)
+    assert runs[0].lambda_min == runs[1].lambda_min

@@ -164,6 +164,9 @@ def test_tensor_input_stays_on_its_device(tall):
     "builder_parallel", "builder_trace", "builder_activeset", "fit_plot",
 ])
 def test_options_not_ported_raise(tall, wide, option):
+    """What is not ported raises by name; glmnet's per-coordinate options,
+    dfmax/pmax and the adaptive lasso are ported now and must run
+    (their parity is ``tests/test_torch_lasso_options.py``)."""
     X, y = tall
     ones = np.ones(X.shape[1])
     path = lambda **kw: admm_tpu_torch.lasso_path(X, y, device="cpu", **kw)
@@ -172,12 +175,12 @@ def test_options_not_ported_raise(tall, wide, option):
     # JAX package's ValueError (tests/test_torch_api_faults.py).
     Xw, yw = wide
     calls = {
-        "penalty_factor": lambda: path(penalty_factor=ones),
-        "lower_limits": lambda: path(lower_limits=0.0),
-        "upper_limits": lambda: path(upper_limits=1.0),
-        "exclude": lambda: path(exclude=[0]),
-        "dfmax": lambda: path(dfmax=3),
-        "pmax": lambda: path(pmax=3),
+        "penalty_factor": lambda: path(penalty_factor=ones, nlambda=5),
+        "lower_limits": lambda: path(lower_limits=0.0, nlambda=5),
+        "upper_limits": lambda: path(upper_limits=1.0, nlambda=5),
+        "exclude": lambda: path(exclude=[0], nlambda=5),
+        "dfmax": lambda: path(dfmax=3, nlambda=5),
+        "pmax": lambda: path(pmax=3, nlambda=5),
         "trace_len": lambda: path(trace_len=8),
         "data_mesh": lambda: path(data_mesh=object()),
         "activeset": lambda: admm_tpu_torch.lasso_path(
@@ -185,18 +188,33 @@ def test_options_not_ported_raise(tall, wide, option):
         "activeset_auto": lambda: admm_tpu_torch.lasso_path(
             np.zeros((2, 20000)), np.zeros(2), device="cpu"),
         "adaptive_lasso_path": lambda: admm_tpu_torch.adaptive_lasso_path(
-            X, y),
+            X, y, nlambda=5, device="cpu"),
         "builder_penalty_factor": lambda: builder.penalty(
-            penalty_factor=ones),
-        "builder_limits": lambda: builder.penalty(lower_limits=0.0),
+            nlambda=5, penalty_factor=ones),
+        "builder_limits": lambda: builder.penalty(nlambda=5,
+                                                  lower_limits=0.0),
         "builder_parallel": lambda: builder.parallel(nthread=2),
         "builder_trace": lambda: builder.opts(trace=True),
         "builder_activeset": lambda: admm_tpu_torch.admm_lasso(
             Xw, yw, device="cpu").opts(path_mode="activeset").fit(),
         "fit_plot": lambda: builder.penalty(nlambda=3).fit().plot(),
     }
+    if option in _PORTED_OPTIONS:
+        res = calls[option]()
+        if isinstance(res, admm_tpu_torch.ADMMLasso):
+            res = res.fit()
+            coef = res.beta.toarray()
+        else:
+            coef = res.coef.numpy()
+        assert coef.size and np.isfinite(coef).all()
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[option]()
+
+
+_PORTED_OPTIONS = {"penalty_factor", "lower_limits", "upper_limits",
+                   "exclude", "dfmax", "pmax", "adaptive_lasso_path",
+                   "builder_penalty_factor", "builder_limits"}
 
 
 def test_builder_validates_like_reference(tall):
