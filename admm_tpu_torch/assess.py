@@ -2,8 +2,10 @@
 ``roc.glmnet``, ``confusion.glmnet`` and ``Cindex`` (counterpart of
 ``admm_tpu/assess.py``).
 
-Host-side numpy on finished gaussian and GLM ``PathResult``s and on CV
-results; the measures are those the CV drivers score
+Runs on finished gaussian and GLM ``PathResult``s and on CV results, in
+float64 on the device of the fit's coefficients (of ``eta=`` where that
+is given instead), and returns numpy, as the JAX package does; the
+measures are those the CV drivers score
 (:mod:`admm_tpu_torch.models.cv`), so ``assess(fit, Xte, yte)['deviance']``
 is what ``cv_*_path`` cross-validates.
 
@@ -22,28 +24,34 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .interop import to_numpy
-from .predict import _family_object, _resolve_cv, predict
+from .predict import _f64, _family_object, _predict, _resolve_cv
+
+
+def _own_device(a) -> torch.device:
+    return a.device if isinstance(a, torch.Tensor) else torch.device("cpu")
 
 
 def _eta_matrix(result, X, eta, offset=None):
-    """The (L, m) linear predictors of a path result on ``X`` or a given
-    ``eta`` (e.g. a ``keep=True`` ``fit_preval`` transposed); ``offset``
-    is glmnet's ``newoffset``."""
+    """The (L, m) float64 linear predictors of a path result on ``X`` or a
+    given ``eta`` (e.g. a ``keep=True`` ``fit_preval`` transposed), on the
+    fit's device (``eta``'s own); ``offset`` is glmnet's ``newoffset``."""
     if eta is not None:
-        eta = np.asarray(to_numpy(eta), np.float64)
+        eta = _f64(eta, _own_device(eta))
         if eta.ndim != 2:
             raise ValueError("eta must be (nlambda, n) — transpose a "
                              "keep=True fit_preval (n, nlambda) first")
         return eta
     if result is None or X is None:
         raise ValueError("pass either (result, X) or eta=")
-    return np.asarray(predict(result, X, type="link", offset=offset))
+    return _predict(result, X, None, "link", "gaussian", offset, None)
 
 
 def _binomial_dev(eta, y):
-    return 2.0 * (np.logaddexp(0.0, eta) - y[None, :] * eta)
+    return 2.0 * (torch.logaddexp(torch.zeros_like(eta), eta)
+                  - y[None, :] * eta)
 
 
 def assess(result, X, y, *, family: str = "gaussian",
@@ -72,85 +80,83 @@ def assess(result, X, y, *, family: str = "gaussian",
         raise NotImplementedError(
             "cox assessment is not ported to admm_tpu_torch yet")
     result, lam = _resolve_cv(result, lam)
-    w = None if weights is None else \
-        np.asarray(to_numpy(weights), np.float64).ravel()
+    etam = _eta_matrix(result, X, eta, offset)
+    device = etam.device
+    w = None if weights is None else _f64(weights, device).ravel()
 
     def agg(per_obs):
         # weighted mean over observations, per path point
         if w is None:
-            return per_obs.mean(axis=-1)
-        return (per_obs * w).sum(axis=-1) / w.sum()
+            return per_obs.mean(dim=-1)
+        return (per_obs * w).sum(dim=-1) / w.sum()
 
-    y = np.asarray(to_numpy(y), np.float64)
-    etam = _eta_matrix(result, X, eta, offset)
-    lams = (np.asarray(to_numpy(result.lambdas)) if result is not None
-            else np.arange(etam.shape[0]))
-
-    def cut(d):
-        if lam is None:
-            return d
-        i = int(np.argmin(np.abs(np.asarray(lams) - float(lam))))
-        return {k: v[i] for k, v in d.items()}
-
+    y = _f64(y, device).ravel()
+    yr = y[None, :]
     fam_obj = None if isinstance(family, str) else _family_object(family)
     if fam_obj is not None:
         mu = (etam if fam_obj.mean_eta is None
               else fam_obj.mean_eta(etam))
         out = {"deviance": agg(fam_obj.cv_loss(etam, y)),
-               "mse": agg((mu - y[None, :]) ** 2),
-               "mae": agg(np.abs(mu - y[None, :]))}
+               "mse": agg((mu - yr) ** 2),
+               "mae": agg(torch.abs(mu - yr))}
         if fam_obj.name.startswith("binomial"):
-            out["class"] = agg(((mu > 0.5) != (y[None, :] > 0.5))
-                               .astype(np.float64))
+            out["class"] = agg(((mu > 0.5) != (yr > 0.5)).to(etam.dtype))
             out["auc"] = _auc_rows(etam, y, w)
     elif family == "gaussian":
-        se = (etam - y[None, :]) ** 2
+        se = (etam - yr) ** 2
         out = {"deviance": agg(se), "mse": agg(se),
-               "mae": agg(np.abs(etam - y[None, :]))}
+               "mae": agg(torch.abs(etam - yr))}
     elif family == "binomial":
-        p = 1.0 / (1.0 + np.exp(-etam))
+        p = 1.0 / (1.0 + torch.exp(-etam))
         out = {"deviance": agg(_binomial_dev(etam, y)),
-               "class": agg(((etam > 0.0) != (y[None, :] > 0.5))
-                            .astype(np.float64)),
+               "class": agg(((etam > 0.0) != (yr > 0.5)).to(etam.dtype)),
                "auc": _auc_rows(etam, y, w),
-               "mse": agg((p - y[None, :]) ** 2),
-               "mae": agg(np.abs(p - y[None, :]))}
+               "mse": agg((p - yr) ** 2),
+               "mae": agg(torch.abs(p - yr))}
     elif family == "poisson":
-        mu = np.exp(etam)
-        ylogy = np.where(y > 0, y * np.log(np.maximum(y, 1e-300)), 0.0)
-        out = {"deviance": agg(2.0 * (ylogy[None, :] - y[None, :] * etam
-                                      - (y[None, :] - mu))),
-               "mse": agg((mu - y[None, :]) ** 2),
-               "mae": agg(np.abs(mu - y[None, :]))}
+        mu = torch.exp(etam)
+        ylogy = torch.where(y > 0, y * torch.log(torch.clamp(y, min=1e-300)),
+                            torch.zeros_like(y))
+        out = {"deviance": agg(2.0 * (ylogy[None, :] - yr * etam
+                                      - (yr - mu))),
+               "mse": agg((mu - yr) ** 2),
+               "mae": agg(torch.abs(mu - yr))}
     else:
         raise ValueError("family must be 'gaussian', 'binomial' or "
                          "'poisson' (multinomial/cox dispatch on the "
                          "result type)")
-    return cut(out)
+    out = {k: to_numpy(v) for k, v in out.items()}
+    if lam is None:
+        return out
+    lams = (np.asarray(to_numpy(result.lambdas)) if result is not None
+            else np.arange(etam.shape[0]))
+    i = int(np.argmin(np.abs(lams - float(lam))))
+    return {k: v[i] for k, v in out.items()}
 
 
 def _auc_rows(etam, y, w=None):
     """Row-wise Mann-Whitney AUC of an (L, n) score matrix against binary
-    ``y`` (ties get the average rank; weights through the weighted
-    pairwise form, as sklearn's ``roc_auc_score``)."""
-    from scipy.stats import rankdata
-
+    ``y``: each positive counts the weight of the negatives scored below
+    it and half that of those tied with it (the average-rank rule; with
+    weights, sklearn's weighted ``roc_auc_score``), read off each row's
+    sorted negative scores and their running weight."""
     pos = y > 0.5
+    npos = int(pos.sum())
+    nneg = y.numel() - npos
     if w is None:
-        ranks = np.apply_along_axis(rankdata, 1, etam)
-        npos, nneg = float(pos.sum()), float((~pos).sum())
         if npos == 0 or nneg == 0:
             raise ValueError("AUC needs both classes present")
-        rpos = ranks[:, pos].sum(axis=1)
-        return (rpos - npos * (npos + 1) / 2.0) / (npos * nneg)
-    out = np.empty(etam.shape[0])
+        w = torch.ones_like(y)
     wp, wn = w[pos], w[~pos]
-    for i, e in enumerate(etam):
-        d = e[pos][:, None] - e[~pos][None, :]
-        conc = (d > 0).astype(np.float64) + 0.5 * (d == 0)
-        out[i] = float((wp[:, None] * wn[None, :] * conc).sum()
-                       / (wp.sum() * wn.sum()))
-    return out
+    neg_sorted, order = torch.sort(etam[:, ~pos], dim=1)
+    run = torch.cumsum(wn[order], dim=1)
+    run = torch.cat([torch.zeros_like(run[:, :1]), run], dim=1)
+    scores = etam[:, pos].contiguous()
+    below = torch.gather(run, 1, torch.searchsorted(neg_sorted, scores))
+    upto = torch.gather(run, 1, torch.searchsorted(neg_sorted, scores,
+                                                   right=True))
+    u = ((below + 0.5 * (upto - below)) * wp[None, :]).sum(dim=1)
+    return u / (wp.sum() * wn.sum())
 
 
 def roc(result, X, y, *, lam: Optional[float] = None, eta=None):
@@ -161,21 +167,24 @@ def roc(result, X, y, *, lam: Optional[float] = None, eta=None):
     if eta is None:
         if lam is None:
             lam = float(np.asarray(to_numpy(result.lambdas))[-1])
-        eta = np.asarray(predict(result, X, lam=lam, type="link"))
-    eta = np.asarray(to_numpy(eta), np.float64).ravel()
-    y = np.asarray(to_numpy(y), np.float64).ravel()
+        eta = _predict(result, X, lam, "link", "gaussian", None, None)
+    eta = _f64(eta, _own_device(eta)).ravel()
+    y = _f64(y, eta.device).ravel()
     pos, neg = y > 0.5, y <= 0.5
     npos, nneg = float(pos.sum()), float(neg.sum())
     if npos == 0 or nneg == 0:
         raise ValueError("ROC needs both classes present")
-    order = np.argsort(-eta, kind="stable")
-    tp = np.cumsum(pos[order].astype(np.float64))
-    fp = np.cumsum(neg[order].astype(np.float64))
+    order = torch.argsort(-eta, stable=True)
+    tp = torch.cumsum(pos[order].to(eta.dtype), dim=0)
+    fp = torch.cumsum(neg[order].to(eta.dtype), dim=0)
     # Tied thresholds collapse: keep the last index of each tied block.
-    keep = np.r_[np.diff(eta[order]) != 0, True]
-    fpr = np.r_[0.0, fp[keep] / nneg]
-    tpr = np.r_[0.0, tp[keep] / npos]
-    return fpr, tpr
+    ranked = eta[order]
+    keep = torch.cat([ranked[1:] != ranked[:-1],
+                      torch.ones(1, dtype=torch.bool, device=eta.device)])
+    zero = torch.zeros(1, dtype=eta.dtype, device=eta.device)
+    fpr = torch.cat([zero, fp[keep] / nneg])
+    tpr = torch.cat([zero, tp[keep] / npos])
+    return to_numpy(fpr), to_numpy(tpr)
 
 
 def confusion(result, X, y, *, lam: Optional[float] = None):
@@ -185,38 +194,38 @@ def confusion(result, X, y, *, lam: Optional[float] = None):
     point."""
     if lam is None:
         lam = float(np.asarray(to_numpy(result.lambdas))[-1])
-    pred = np.asarray(predict(result, X, lam=lam, type="class",
-                              family="binomial"))
-    yi = np.asarray(to_numpy(y)).astype(np.int64).ravel()
-    tab = np.zeros((2, 2), np.int64)
-    np.add.at(tab, (yi, pred.astype(np.int64).ravel()), 1)
-    return tab
+    pred = _predict(result, X, lam, "class", "binomial", None,
+                    None).ravel()
+    yi = _f64(y, pred.device).to(torch.int64).ravel()
+    return to_numpy(torch.bincount(2 * yi + pred, minlength=4)
+                    .reshape(2, 2))
 
 
 def c_index(eta, time, event, weights=None):
     """Harrell's concordance index of risk scores (glmnet's ``Cindex``;
-    a higher score should mean an earlier event).
+    a higher score should mean an earlier event), on ``eta``'s device.
 
     ``eta``: (n,) or (L, n) scores.  A pair (i, j) is comparable when
     ``t_i < t_j`` and subject i had an event, and concordant when ``eta_i
     > eta_j`` (ties count 1/2); rows with tied times are not comparable.
     ``weights``: pair (i, j) carries ``w_i * w_j``.
     """
-    eta = np.asarray(to_numpy(eta), np.float64)
+    device = _own_device(eta)
+    eta = _f64(eta, device)
     one = eta.ndim == 1
     E = eta[None, :] if one else eta            # (L, n)
-    t = np.asarray(to_numpy(time), np.float64).ravel()
-    d = np.asarray(to_numpy(event), np.float64).ravel()
+    t = _f64(time, device).ravel()
+    d = _f64(event, device).ravel()
     comp = ((t[:, None] < t[None, :])
-            & (d[:, None] > 0)).astype(np.float64)        # (n, n)
+            & (d[:, None] > 0)).to(eta.dtype)              # (n, n)
     if weights is not None:
-        w = np.asarray(to_numpy(weights), np.float64).ravel()
-        comp = comp * np.outer(w, w)
+        w = _f64(weights, device).ravel()
+        comp = comp * torch.outer(w, w)
     ncomp = float(comp.sum())
     if ncomp == 0:
         raise ValueError("no comparable pairs (need an event with a "
                          "later follow-up)")
     diff = E[:, :, None] - E[:, None, :]        # (L, n, n) eta_i - eta_j
-    conc = (diff > 0) + 0.5 * (diff == 0)
-    out = (conc * comp[None]).sum(axis=(1, 2)) / ncomp
+    conc = (diff > 0).to(eta.dtype) + 0.5 * (diff == 0).to(eta.dtype)
+    out = to_numpy((conc * comp[None]).sum(dim=(1, 2)) / ncomp)
     return float(out[0]) if one else out

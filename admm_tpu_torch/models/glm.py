@@ -51,17 +51,22 @@ from .lasso import (PathResult, _as_tensor, _batched_cold_states, _linspace,
 _NEWTON_STEPS = 2
 
 
+def _also_numpy(fn):
+    """A tensor function that also takes numpy arrays: tensors stay on
+    their device; numpy arrays are computed on the host in float64 and
+    come back as numpy."""
+    def apply(*args):
+        if isinstance(args[0], torch.Tensor):
+            return fn(*args)
+        return fn(*(torch.as_tensor(np.asarray(a, np.float64))
+                    for a in args)).numpy()
+
+    return apply
+
+
 def _poisson_deviance(eta, y):
-    """Per-observation Poisson deviance from the linear predictor
-    (numpy; the y log y term follows xlogy semantics: 0 at y = 0)."""
-    mu = np.exp(np.minimum(eta, 30.0))
-    ylogy = np.where(y > 0, y * np.log(np.maximum(y, 1e-12)),
-                     0.0)[None, :]
-    return 2.0 * (ylogy - y[None, :] * eta - (y[None, :] - mu))
-
-
-def _poisson_deviance_dev(eta, y):
-    """Tensor twin of :func:`_poisson_deviance` (device-side CV scoring)."""
+    """Per-observation Poisson deviance from the linear predictor (the
+    y log y term follows xlogy semantics: 0 at y = 0)."""
     mu = torch.exp(torch.clamp(eta, max=30.0))
     ylogy = torch.where(y > 0, y * torch.log(torch.clamp(y, min=1e-12)),
                         torch.zeros_like(y))[None, :]
@@ -73,11 +78,6 @@ def _wmean(y, w=None):
     if w is None:
         return torch.mean(y)
     return torch.sum(w * y) / torch.sum(w)
-
-
-def _via_torch(fn, a):
-    """A tensor function applied to a numpy array, on the host."""
-    return fn(torch.as_tensor(np.asarray(a))).numpy()
 
 
 class GLMFamily(NamedTuple):
@@ -93,8 +93,9 @@ class GLMFamily(NamedTuple):
     grad_eta: Callable
     weight_eta: Callable
     null_resid: Callable
-    # Per-observation CV loss loss(eta (k, n), y (n,)) -> (k, n) in
-    # numpy: the deviance-style measure matching the objective.
+    # Per-observation CV loss loss(eta (k, n), y (n,)) -> (k, n) on
+    # tensors or numpy arrays (``_also_numpy``): the deviance-style
+    # measure matching the objective.
     cv_loss: Callable
     # Global upper bound on weight_eta (d2loss/deta2), or None when the
     # curvature is unbounded (poisson).  Bounded-curvature families get
@@ -106,11 +107,17 @@ class GLMFamily(NamedTuple):
     # Scalar family parameter (huber's M), exposed so non-closure
     # consumers (the CUDA kernel) can rebuild the gradient.
     param: float = 0.0
-    # Inverse link mu(eta) in NUMPY (host-side, like cv_loss).
+    # Inverse link mu(eta), on tensors or numpy arrays like cv_loss.
     # None = identity (gaussian-style location families, e.g. huber).
     mean_eta: Optional[Callable] = None
-    # Optional tensor twin of cv_loss, for scoring on the device.
+    # cv_loss on tensors alone, for the CV drivers' scoring on the device
+    # (the families whose JAX counterpart has one).
     cv_loss_dev: Optional[Callable] = None
+
+
+def _binomial_deviance(eta, y):
+    return 2.0 * (torch.logaddexp(torch.zeros_like(eta), eta)
+                  - y[None, :] * eta)
 
 
 @lru_cache(maxsize=None)
@@ -123,12 +130,10 @@ def binomial() -> GLMFamily:
             torch.sigmoid(eta)),
         null_resid=lambda y, intercept, w=None: y - (
             _wmean(y, w) if intercept else 0.5),
-        cv_loss=lambda eta, y: 2.0 * (np.logaddexp(0.0, eta)
-                                      - y[None, :] * eta),
-        cv_loss_dev=lambda eta, y: 2.0 * (
-            torch.logaddexp(torch.zeros_like(eta), eta) - y[None, :] * eta),
+        cv_loss=_also_numpy(_binomial_deviance),
+        cv_loss_dev=_binomial_deviance,
         curvature_bound=0.25,  # p(1-p) <= 1/4
-        mean_eta=lambda eta: 1.0 / (1.0 + np.exp(-eta)),
+        mean_eta=_also_numpy(lambda eta: 1.0 / (1.0 + torch.exp(-eta))),
     )
 
 
@@ -161,10 +166,6 @@ def huber(M: float = 1.345) -> GLMFamily:
         mu = 0.5 * (lo + hi)
         return torch.clamp(y - mu, -M, M)
 
-    def cv_loss(eta, y):
-        r = np.abs(y[None, :] - eta)
-        return np.where(r <= M, 0.5 * r * r, M * r - 0.5 * M * M)
-
     def cv_loss_dev(eta, y):
         r = torch.abs(y[None, :] - eta)
         return torch.where(r <= M, 0.5 * r * r, M * r - 0.5 * M * M)
@@ -174,7 +175,7 @@ def huber(M: float = 1.345) -> GLMFamily:
         grad_eta=lambda eta, y: -torch.clamp(y - eta, -M, M),
         weight_eta=lambda eta, y: (torch.abs(y - eta) <= M).to(eta.dtype),
         null_resid=null_resid,
-        cv_loss=cv_loss,
+        cv_loss=_also_numpy(cv_loss_dev),
         cv_loss_dev=cv_loss_dev,
         curvature_bound=1.0,  # the inlier indicator is <= 1
         param=float(M),
@@ -191,9 +192,10 @@ def poisson() -> GLMFamily:
         weight_eta=lambda eta, y: torch.exp(torch.clamp(eta, max=30.0)),
         null_resid=lambda y, intercept, w=None: y - (
             _wmean(y, w) if intercept else 1.0),
-        cv_loss=_poisson_deviance,
-        cv_loss_dev=_poisson_deviance_dev,
-        mean_eta=lambda eta: np.exp(np.minimum(eta, 30.0)),
+        cv_loss=_also_numpy(_poisson_deviance),
+        cv_loss_dev=_poisson_deviance,
+        mean_eta=_also_numpy(
+            lambda eta: torch.exp(torch.clamp(eta, max=30.0))),
     )
 
 
@@ -219,7 +221,7 @@ def binomial_probit() -> GLMFamily:
     lie in (0, 1), so the curvature bound 1 drives the same
     fixed-majorizer protocol as the logit link."""
     def cv_loss(eta, y):
-        log_ndtr = lambda a: _via_torch(torch.special.log_ndtr, a)
+        log_ndtr = torch.special.log_ndtr
         return -2.0 * (y[None, :] * log_ndtr(eta)
                        + (1.0 - y[None, :]) * log_ndtr(-eta))
 
@@ -238,9 +240,9 @@ def binomial_probit() -> GLMFamily:
             y * (lambda r: r * (r + eta))(_mills(eta))
             + (1.0 - y) * (lambda r: r * (r - eta))(_mills(-eta))),
         null_resid=null_resid,
-        cv_loss=cv_loss,
+        cv_loss=_also_numpy(cv_loss),
         curvature_bound=1.0,  # r(r +/- eta) < 1 for every eta
-        mean_eta=lambda eta: _via_torch(torch.special.ndtr, eta),
+        mean_eta=_also_numpy(torch.special.ndtr),
     )
 
 
@@ -280,8 +282,8 @@ def binomial_cloglog() -> GLMFamily:
         return -grad_eta(eta0 + torch.zeros_like(y), y)
 
     def cv_loss(eta, y):
-        t = np.exp(np.minimum(eta, 30.0))
-        logp = np.log(np.maximum(-np.expm1(-t), 1e-300))
+        t = torch.exp(torch.clamp(eta, max=30.0))
+        logp = torch.log(torch.clamp(-torch.expm1(-t), min=1e-300))
         return -2.0 * (y[None, :] * logp - (1.0 - y[None, :]) * t)
 
     return GLMFamily(
@@ -289,8 +291,9 @@ def binomial_cloglog() -> GLMFamily:
         grad_eta=grad_eta,
         weight_eta=weight_eta,
         null_resid=null_resid,
-        cv_loss=cv_loss,
-        mean_eta=lambda eta: -np.expm1(-np.exp(np.minimum(eta, 30.0))),
+        cv_loss=_also_numpy(cv_loss),
+        mean_eta=_also_numpy(lambda eta: -torch.expm1(
+            -torch.exp(torch.clamp(eta, max=30.0)))),
     )
 
 
@@ -304,9 +307,9 @@ def gamma_log() -> GLMFamily:
     adaptive per-lambda majorizer (the poisson protocol)."""
     def cv_loss(eta, y):
         # Gamma deviance: 2 [ (y - mu)/mu - log(y/mu) ], mu = e^eta.
-        mu = np.exp(np.clip(eta, -30.0, 30.0))
+        mu = torch.exp(torch.clamp(eta, -30.0, 30.0))
         r = y[None, :] / mu
-        return 2.0 * (r - 1.0 - np.log(np.maximum(r, 1e-300)))
+        return 2.0 * (r - 1.0 - torch.log(torch.clamp(r, min=1e-300)))
 
     return GLMFamily(
         name="gamma_log",
@@ -315,8 +318,9 @@ def gamma_log() -> GLMFamily:
         weight_eta=lambda eta, y: y * torch.exp(torch.clamp(-eta, max=30.0)),
         null_resid=lambda y, intercept, w=None: (
             y / _wmean(y, w) - 1.0 if intercept else y - 1.0),
-        cv_loss=cv_loss,
-        mean_eta=lambda eta: np.exp(np.clip(eta, -30.0, 30.0)),
+        cv_loss=_also_numpy(cv_loss),
+        mean_eta=_also_numpy(
+            lambda eta: torch.exp(torch.clamp(eta, -30.0, 30.0))),
     )
 
 
@@ -342,11 +346,12 @@ def negative_binomial(theta: float = 1.0) -> GLMFamily:
     def cv_loss(eta, y):
         # NB2 deviance at fixed theta: 2 [ y log(y/mu)
         #   - (y+theta) log((y+theta)/(mu+theta)) ], xlogy at y = 0.
-        mu = np.exp(np.clip(eta, -30.0, 30.0))
+        mu = torch.exp(torch.clamp(eta, -30.0, 30.0))
         yb = y[None, :]
-        ylogy = np.where(yb > 0,
-                         yb * np.log(np.maximum(yb, 1e-300) / mu), 0.0)
-        return 2.0 * (ylogy - (yb + th) * np.log((yb + th) / (mu + th)))
+        ylogy = torch.where(
+            yb > 0, yb * torch.log(torch.clamp(yb, min=1e-300) / mu),
+            torch.zeros_like(mu))
+        return 2.0 * (ylogy - (yb + th) * torch.log((yb + th) / (mu + th)))
 
     def null_resid(y, intercept, w=None):
         mu0 = _wmean(y, w) if intercept else 1.0
@@ -357,9 +362,10 @@ def negative_binomial(theta: float = 1.0) -> GLMFamily:
         grad_eta=grad_eta,
         weight_eta=weight_eta,
         null_resid=null_resid,
-        cv_loss=cv_loss,
+        cv_loss=_also_numpy(cv_loss),
         param=th,
-        mean_eta=lambda eta: np.exp(np.clip(eta, -30.0, 30.0)),
+        mean_eta=_also_numpy(
+            lambda eta: torch.exp(torch.clamp(eta, -30.0, 30.0))),
     )
 
 

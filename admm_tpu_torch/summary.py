@@ -3,10 +3,10 @@
 
 glmnet's ``print.glmnet`` table for a finished gaussian or GLM
 ``PathResult``: the number of exactly nonzero coefficients and the
-fraction of the null deviance explained at every grid point.  Host-side
-numpy in float64; the deviances are the CV losses of
-:mod:`admm_tpu_torch.models.cv` (``GLMFamily.cv_loss``), so ``1 -
-dev/nulldev`` agrees with what the ``cv_*_path`` drivers score.
+fraction of the null deviance explained at every grid point.  Float64 on
+the device of the fit's coefficients, numpy out; the deviances are the CV
+losses of :mod:`admm_tpu_torch.models.cv` (``GLMFamily.cv_loss``), so
+``1 - dev/nulldev`` agrees with what the ``cv_*_path`` drivers score.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .interop import to_numpy
+from .predict import _device_of, _f64, _linear_predictor
 
 
 class PathTable(NamedTuple):
@@ -41,24 +42,22 @@ def _resolve_family(family):
 
 
 def _null_eta(fam, y, w):
-    """Intercept-only linear predictor: the root of the weighted score
-    ``sum w grad_eta(b0, y) = 0``, by bisection on the data bracket (the
-    loss is convex in eta, so the score is monotone)."""
+    """Intercept-only linear predictor, a 0-d tensor: the root of the
+    weighted score ``sum w grad_eta(b0, y) = 0``, by bisection on the data
+    bracket (the loss is convex in eta, so the score is monotone), with
+    no read on the host."""
     if fam is None:
-        return float(np.average(y, weights=w))
-    yt = torch.as_tensor(y, dtype=torch.float64)
+        return torch.mean(y) if w is None else torch.sum(w * y) / torch.sum(w)
 
     def score(b0):
-        g = fam.grad_eta(torch.full_like(yt, b0), yt).numpy()
-        return float(np.sum(g if w is None else w * g))
+        g = fam.grad_eta(b0.expand_as(y), y)
+        return torch.sum(g if w is None else w * g)
 
-    lo, hi = float(np.min(y)) - 30.0, float(np.max(y)) + 30.0
+    lo, hi = torch.min(y) - 30.0, torch.max(y) + 30.0
     for _ in range(80):
         mid = 0.5 * (lo + hi)
-        if score(mid) < 0.0:
-            lo = mid
-        else:
-            hi = mid
+        below = score(mid) < 0.0
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
     return 0.5 * (lo + hi)
 
 
@@ -81,43 +80,41 @@ def path_table(result, X, y, *, family="gaussian",
                         f"{result.__class__.__name__} results in "
                         "admm_tpu_torch yet")
     fam = _resolve_family(family)
-    X = np.asarray(to_numpy(X), np.float64)
-    y = np.asarray(to_numpy(y), np.float64)
-    w = None if weights is None else np.asarray(to_numpy(weights),
-                                                np.float64)
-    coef = np.asarray(to_numpy(result.coef), np.float64)     # (L, p)
-    beta0 = np.asarray(to_numpy(result.beta0), np.float64)   # (L,)
+    device = _device_of(result)
+    y = _f64(y, device)
+    w = None if weights is None else _f64(weights, device)
+    df = to_numpy(torch.count_nonzero(result.coef, dim=1)) \
+        if isinstance(result.coef, torch.Tensor) \
+        else np.count_nonzero(result.coef, axis=1)
     lams = np.asarray(to_numpy(result.lambdas), np.float64)
-    df = np.count_nonzero(coef, axis=1)
 
-    eta = beta0[:, None] + coef @ X.T             # (L, n)
+    eta = _linear_predictor(result, X, None)      # (L, n)
+    b0 = _null_eta(fam, y, w)
     if fam is None:
         per_obs = (eta - y[None, :]) ** 2
-        null_per = (y - _null_eta(None, y, w)) ** 2
+        null_per = (y - b0) ** 2
     elif fam.name == "poisson":
         # The saturated-model deviance 2[y log(y/mu) - (y - mu)]: the
         # y log y - y term cancels in deviance differences but not in the
         # %Dev denominator.
+        ylogy = torch.where(y > 0, y * torch.log(torch.clamp(y, min=1e-300)),
+                            torch.zeros_like(y))
+
         def pdev(e):
-            mu = np.exp(e)
-            ylogy = np.where(y > 0, y * np.log(np.maximum(y, 1e-300)),
-                             0.0)
-            return 2.0 * (ylogy - y * e - (y - mu))
+            return 2.0 * (ylogy - y * e - (y - torch.exp(e)))
 
         per_obs = pdev(eta)
-        null_per = pdev(np.full((1, y.size), _null_eta(fam, y, w)))[0]
+        null_per = pdev(b0.expand(1, y.numel()))[0]
     else:
         # binomial's cv_loss is the exact deviance for y in {0, 1};
         # huber's has no canonical deviance, its CV loss is reported.
-        per_obs = np.asarray(fam.cv_loss(eta, y), np.float64)
-        b0 = _null_eta(fam, y, w)
-        null_per = np.asarray(
-            fam.cv_loss(np.full((1, y.size), b0), y), np.float64)[0]
+        per_obs = fam.cv_loss(eta, y)
+        null_per = fam.cv_loss(b0.expand(1, y.numel()), y)[0]
 
     if w is not None:
         per_obs = per_obs * w[None, :]
         null_per = null_per * w
-    dev = per_obs.sum(axis=1)
+    dev = to_numpy(per_obs.sum(dim=1))
     nulldev = float(null_per.sum())
     dev_ratio = (nulldev - dev) / nulldev if nulldev > 0 else \
         np.zeros_like(dev)

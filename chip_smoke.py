@@ -53,6 +53,7 @@ outside a checkout of the repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -201,6 +202,50 @@ class Smoke:
             self.failures.append(what)
 
 
+class StageClock:
+    """Host-clock times of the functions that one call reaches, each run
+    to a ``torch.cuda.synchronize()`` on both sides.  :meth:`patch` puts
+    a timed wrapper in place of ``module.attr`` for as long as the
+    ``with`` lasts; a time is inclusive and keyed by the chain of timed
+    callers ("fold sweep > _tall_setup"), summed over the calls.
+    ``keep`` names the chains whose first call's arguments are kept."""
+
+    def __init__(self, torch, keep=()):
+        self.torch, self.keep = torch, set(keep)
+        self.stack, self.ms, self.calls, self.args = [], {}, {}, {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            self.stack.append(name)
+            key = " > ".join(self.stack)
+            if key in self.keep and key not in self.args:
+                self.args[key] = (args, kwargs)
+            self.ms.setdefault(key, 0.0)            # keys in call order
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.torch.cuda.synchronize()
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+                self.calls[key] = self.calls.get(key, 0) + 1
+                self.stack.pop()
+
+        return timed
+
+    @contextlib.contextmanager
+    def patch(self, targets):
+        """``targets``: (module, attribute, stage name) triples."""
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+        try:
+            for mod, attr, name in targets:
+                setattr(mod, attr, self.wrap(name, getattr(mod, attr)))
+            yield self
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+
+
 def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
     """Phase 4b: ``cv_lasso_path`` at 10000 x 1000 and 1000 x 2000 (100
     lambdas, 10 folds; one batch-kernel launch for the full fit and one per
@@ -210,14 +255,15 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
     ``predict`` and ``assess`` on the tall CV.  Each call runs with the
     launch counts at 0 just before it and read just after; they add to the
     kernels' ``launches``.  Every result is held against the port's
-    float64 run on the card; times are medians of 3 after a warm-up, and
-    the tall CV gets a stage breakdown."""
+    float64 run on the card.  Times: the kernel paths' medians of 3 after
+    a warm-up; the engine-bound calls (host loops that move by up to 2x
+    between calls) their first call; the tall CV's stages come from the
+    real ``cv_lasso_path`` under a :class:`StageClock`."""
     import admm_tpu_torch as t
     from admm_tpu_torch import kernels
-    from admm_tpu_torch.data.standardize import recover, standardize
     from admm_tpu_torch.kernels import tall_path
-    from admm_tpu_torch.models.cv import _cv_foldid, _score_reduce_dev
-    from admm_tpu_torch.models.lasso import _tall_setup
+    from admm_tpu_torch.models import cv as cv_mod
+    from admm_tpu_torch.models import lasso as lasso_mod
 
     print("phase: cv, options and prediction", flush=True)
     f64 = dict(dtype=torch.float64)
@@ -249,7 +295,7 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
          lambda: t.adaptive_lasso_path(X, y),
          lambda: t.adaptive_lasso_path(X, y, **f64)),
     ]
-    outs = []
+    outs, first_ms = [], []
     for label, kname, want, call, _ in calls:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -266,6 +312,7 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
             record[name]["launches"] += launched
         print(f"  {label}: first call {first_s:.2f} s on the host clock")
         outs.append(out)
+        first_ms.append(first_s * 1e3)
 
     def idx(cv, lam):
         return int(np.argmin(np.abs(cv.lambdas - lam)))
@@ -307,16 +354,19 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
             smoke.check(i == j or tie, f"{label}: {key} at float64's grid "
                         f"point, or a tie of cvm within rtol 1e-5")
 
-    # predict and assess on the tall CV, from numpy on the host.
+    # predict and assess on the tall CV: float64 on the card, numpy out.
     cv = outs[0]
     i = idx(cv, cv.lambda_min)
+    Xt = torch.as_tensor(X, **f32)
     eta = t.predict(cv, X, lam="lambda.min")
     want = (to_np(cv.fit.beta0)[i]
             + X.astype(np.float64) @ to_np(cv.fit.coef)[i])
     pgap = float(np.abs(eta - want).max())
+    dgap = float(np.abs(t.predict(cv, Xt, lam="lambda.min") - eta).max())
     print(f"  predict(cv, X, lam='lambda.min'): shape {eta.shape}, max |eta "
-          f"- (beta0 + X coef)| {pgap:.3e}")
-    smoke.check(eta.shape == (X.shape[0],) and pgap <= 1e-9,
+          f"- (beta0 + X coef)| {pgap:.3e}; X on the card vs numpy X "
+          f"{dgap:.3e}")
+    smoke.check(eta.shape == (X.shape[0],) and pgap <= 1e-9 and dgap == 0.0,
                 "predict(cv, X, lam='lambda.min') = beta0 + X coef at it")
     a = t.assess(cv, X, y)
     print(f"  assess(cv, X, y) at lambda.1se: "
@@ -325,78 +375,77 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
                 and all(np.isfinite(float(v)) for v in a.values()),
                 "assess(cv, X, y) runs")
 
-    # One fold's kernel against its plain form (the weighted fold's own
-    # Minv and grid), outside the counted calls.
-    Xt, yt = torch.as_tensor(X, **f32), torch.as_tensor(y, **f32)
+    # End to end: the kernel paths median of 3 after a warm-up (CUDA
+    # events), the engine-bound calls their first call above.
+    for (label, kname, _, call, _), ms0 in zip(calls, first_ms):
+        if kname is None:
+            print(f"  end to end {label}: {ms0:.3f} ms (one call, host "
+                  f"clock)")
+        else:
+            print(f"  end to end {label}: "
+                  f"{cuda_median_ms(torch, call, reps=3):.3f} ms (median "
+                  f"of 3)")
+    yt = torch.as_tensor(y, **f32)
+    for what, Xa, ya in (("numpy X, y", X, y), ("X, y on the card", Xt, yt)):
+        predict_ms = cuda_median_ms(
+            torch, lambda: t.predict(cv, Xa, lam="lambda.min"), reps=3)
+        assess_ms = cuda_median_ms(torch, lambda: t.assess(cv, Xa, ya),
+                                   reps=3)
+        print(f"  end to end predict(cv, X, lam='lambda.min'): "
+              f"{predict_ms:.3f} ms; assess(cv, X, y): {assess_ms:.3f} ms "
+              f"({what}; medians of 3)")
+
+    # Stages of the tall cv_lasso_path itself, each timed function run to
+    # a synchronize: a warm-up, then the median of 3 per stage.
     n = X.shape[0]
-    foldid = _cv_foldid(n, nfolds, 0, None)[0]
-    masks = torch.as_tensor((foldid[None, :] != np.arange(nfolds)[:, None])
-                            .astype(np.float32), device=Xt.device)
+    title = f"cv_lasso_path {n} x {X.shape[1]} x 100, {nfolds} folds"
+    fold_kernel = "fold sweep > tall_path_batch"
+    targets = [(cv_mod, "_as_tensor", "X to the card"),
+               (cv_mod, "lasso_path", "full fit"),
+               (cv_mod, "_fold_sweep", "fold sweep"),
+               (lasso_mod, "standardize", "standardize"),
+               (lasso_mod, "_tall_setup", "_tall_setup"),
+               (tall_path, "tall_path_batch", "tall_path_batch"),
+               (lasso_mod, "recover", "recover"),
+               (cv_mod, "_score_reduce_dev", "scoring"),
+               (cv_mod, "to_numpy", "to the host")]
+    runs = []
+    for _ in range(4):
+        clock = StageClock(torch, keep=(fold_kernel,))
+        with clock.patch(targets):
+            t0 = time.perf_counter()
+            t.cv_lasso_path(X, y, nfolds=nfolds)
+            torch.cuda.synchronize()
+            clock.ms["whole call"] = (time.perf_counter() - t0) * 1e3
+        runs.append(clock)
+    keys = list(runs[1].ms)
+    med = {k: statistics.median(r.ms.get(k, 0.0) for r in runs[1:])
+           for k in keys}
+    for k in keys:
+        print(f"  {title} | {k}: {med[k]:.3f} ms ({runs[1].calls.get(k, 1)}"
+              f" calls)")
+    top = [k for k in keys if " > " not in k and k != "whole call"]
+    sweep = [k for k in keys if k.startswith("fold sweep > ")
+             and k.count(" > ") == 1]
+    print(f"  {title} | fold sweep outside its timed stages (grid scaling, "
+          f"own-fold predictors): "
+          f"{med['fold sweep'] - sum(med[k] for k in sweep):.3f} ms")
+    print(f"  {title} | outside the timed stages (foldid, masks, y, "
+          f"choice of lambda): {med['whole call'] - sum(med[k] for k in top):.3f}"
+          f" ms")
 
-    def fold_setup(f):
-        Xs, ys, st = standardize(Xt, yt, standardize_x=True, intercept=True,
-                                 weights=masks[f])
-        ilams = cv.fit.lambdas * n / st.scale_y
-        Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], -1.0)
-        return st, (Minv.contiguous(), Xty.contiguous(), ilams.contiguous(),
-                    rho, EPS, EPS, 1.0, MAXIT)
-
-    _, args0 = fold_setup(0)
-    zk, nk = tall_path.tall_path_batch(*args0)
-    zp, np_ = tall_path.tall_path_batch_reference(*args0)
+    # Fold 0's kernel against its plain form, on the inputs the real fold
+    # sweep gave it, outside the counted calls.
+    args, kwargs = runs[0].args[fold_kernel]
+    zk, nk = tall_path.tall_path_batch(*args, **kwargs)
+    zp, np_ = tall_path.tall_path_batch_reference(*args, **kwargs)
     fgap = float((zk - zp).abs().max())
     lane_gap = int((nk - np_).abs().max())
     print(f"  tall_path_batch on fold 0's inputs: max |coef gap| {fgap:.3e}, "
           f"niter total {int(nk.sum())}, max lane gap {lane_gap}")
     smoke.check(fgap <= COEF_BAR and lane_gap <= 1,
                 f"fold 0: kernel within {COEF_BAR} of plain, niter within 1")
-
-    # End to end, median of 3 after a warm-up (CUDA events).
-    for label, _, _, call, _ in calls:
-        print(f"  end to end {label}: "
-              f"{cuda_median_ms(torch, call, reps=3):.3f} ms (median of 3)")
-    predict_ms = cuda_median_ms(
-        torch, lambda: t.predict(cv, X, lam="lambda.min"), reps=3)
-    assess_ms = cuda_median_ms(torch, lambda: t.assess(cv, X, y), reps=3)
-    print(f"  end to end predict(cv, X, lam='lambda.min'): {predict_ms:.3f} "
-          f"ms; assess(cv, X, y): {assess_ms:.3f} ms (medians of 3)")
-
-    # Stages of the tall cv_lasso_path, host clock to a synchronize.
-    title = f"cv_lasso_path {n} x {X.shape[1]} x 100, {nfolds} folds"
-    ms = {}
-
-    def stage(name, fn, reps=3):
-        ms[name], out = host_median_ms(torch, fn, reps=reps)
-        print(f"  {title} | {name}: {ms[name]:.3f} ms")
-        return out
-
-    stage("numpy -> device copy of X, y",
-          lambda: (torch.as_tensor(X, **f32), torch.as_tensor(y, **f32)))
-    full = stage("full fit (lasso_path, batch: standardize, grid, "
-                 "_tall_setup, kernel, recover)",
-                 lambda: t.lasso_path(Xt, yt, path_mode="batch"))
-    setups = stage("fold setups (weighted standardize, _tall_setup) x "
-                   f"{nfolds}", lambda: [fold_setup(f) for f in range(nfolds)])
-    sols = stage(f"fold kernels (tall_path_batch) x {nfolds}",
-                 lambda: [tall_path.tall_path_batch(*a) for _, a in setups])
-
-    rows = [torch.as_tensor(np.flatnonzero(foldid == f), device=Xt.device)
-            for f in range(nfolds)]
-
-    def own_fold_eta():
-        eta = torch.empty((n, full.coef.shape[0]), **f32)
-        for f, ((st, _), (z, _)) in enumerate(zip(setups, sols)):
-            beta0, coef = recover(st, z, standardize_x=True, intercept=True)
-            eta[rows[f]] = beta0[None, :] + Xt[rows[f]] @ coef.mT
-        return eta
-
-    eta_d = stage("recover, own-fold predictors", own_fold_eta)
-    ws = torch.ones(n, **f32)
-    curves = stage("scoring (_score_reduce_dev)", lambda: _score_reduce_dev(
-        eta_d, yt, ws, torch.tensor(float(n), **f32), "mse"))
-    stage("curves to the host", lambda: curves.cpu().numpy())
-    print(f"  {title} | sum: {sum(ms.values()):.3f} ms")
-    del setups, sols, eta_d
+    del runs, args, kwargs
 
 
 def main() -> int:

@@ -887,3 +887,31 @@ def test_tall_cv_gives_the_same_bits_twice(dev):
     assert np.array_equal(runs[0].cvm, runs[1].cvm)
     assert np.array_equal(runs[0].cvsd, runs[1].cvsd)
     assert runs[0].lambda_min == runs[1].lambda_min
+
+
+def test_prediction_on_the_card_matches_the_host(dev):
+    """``predict``, ``assess`` and ``path_table`` of a fit made on the card
+    run there in float64 and agree with the same fit moved to the CPU to
+    rtol 1e-10 (the products add in another order)."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.predict import _predict
+
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(300, 30))
+    y = (X[:, 0] - X[:, 1] + rng.normal(size=300) > 0).astype(float)
+    fit = t.logistic_lasso_path(X, y, nlambda=10, device=dev)
+    host = fit._replace(**{k: v.cpu() for k, v in fit._asdict().items()
+                           if isinstance(v, torch.Tensor)})
+    lam = float(fit.lambdas[4])
+    assert _predict(fit, X, lam, "response", "binomial", None,
+                    None).device.type == "cuda"
+    close = lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-10,
+                                                    atol=1e-13)
+    for kw in (dict(), dict(lam=lam, type="response", family="binomial")):
+        close(t.predict(fit, X, **kw), t.predict(host, X, **kw))
+    got, want = (t.assess(r, X, y, family="binomial") for r in (fit, host))
+    for k in want:
+        close(got[k], want[k])
+    got, want = (t.path_table(r, X, y, family=t.binomial) for r in (fit, host))
+    np.testing.assert_array_equal(got.df, want.df)
+    close(got.dev_ratio, want.dev_ratio)

@@ -5,8 +5,8 @@ Both packages get the SAME fitted result: a path fitted by ``admm_tpu``
 and carried into the port's ``PathResult`` by
 ``admm_tpu_torch.interop.from_reference`` (a CV result keeps its numpy
 fields and gets the converted fit), so what is compared is the
-post-processing alone; both compute on the host in float64, and the bar
-is rtol 1e-12 (atol 1e-15: the probit link is torch's ``ndtr`` in the
+post-processing alone.  Both compute in float64, the port on the device
+of the fit's coefficients (here the CPU), and the bar is rtol 1e-12 (atol 1e-15: the probit link is torch's ``ndtr`` in the
 port and JAX's in the reference, which differ by 3e-17 near 0).  One
 case also predicts from a fit of the port's own.
 """
@@ -20,6 +20,7 @@ from admm_tpu.models import glm as jglm
 from admm_tpu_torch.interop import from_reference
 from admm_tpu_torch.models import glm as tglm
 from admm_tpu_torch.models.cv import CVResult
+from admm_tpu_torch.predict import _predict
 
 torch.set_num_threads(1)
 RTOL = 1e-12
@@ -153,6 +154,23 @@ def test_predict_from_a_port_fit(gauss):
         admm_tpu_torch.predict(cvp, X, lam="lambda.min"),
         cvp.fit.beta0.double().numpy()[i]
         + X @ cvp.fit.coef.double().numpy()[i], rtol=1e-12)
+
+
+@pytest.mark.parametrize("type", ["link", "response", "class",
+                                  "coefficients"])
+def test_prediction_runs_on_the_fits_device(gauss, type):
+    """The work runs where the fit's coefficients live: a fit moved to the
+    meta device (shapes, no data) predicts into a meta tensor, so no step
+    went through numpy on the host (the card's case is in
+    tests/test_torch_kernels_gpu.py)."""
+    X, _, _, got = gauss
+    meta = got._replace(beta0=got.beta0.to("meta"), coef=got.coef.to("meta"))
+    out = _predict(meta, X, float(got.lambdas[3]), type, "binomial", None,
+                   None)
+    assert out.device.type == "meta"
+    assert out.dtype == (torch.int64 if type == "class" else torch.float64)
+    assert out.shape == ((X.shape[1] + 1,) if type == "coefficients"
+                         else (X.shape[0],))
 
 
 @pytest.mark.parametrize("case", ["type", "family", "class_gaussian",
