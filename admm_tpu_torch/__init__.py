@@ -3,12 +3,15 @@
 A second package beside the JAX one, for one NVIDIA H100.  It holds the
 reference's five exports, the Lasso/Elastic-Net lambda path (tall and
 wide, "scan" and "batch"), LAD and quantile regression, Basis Pursuit
-(one signal or a batch) and the Dantzig selector, and the penalized GLM
+(one signal or a batch) and the Dantzig selector, the penalized GLM
 paths (logistic, Huber, Poisson and the family objects), with glmnet's
 per-coordinate options (penalty factors, coefficient limits, ``exclude``,
-``dfmax``/``pmax``), the adaptive lasso, k-fold cross-validation of the
-gaussian, GLM and Dantzig paths, and ``predict``/``coef``, the path
-summary and ``assess``/``roc``/``confusion``/``c_index``.  All six of the
+``dfmax``/``pmax``), the adaptive lasso, the wide active-set path, the
+(sparse-)group, generalized/fused, constrained/zero-sum and relaxed
+lasso, k-fold cross-validation of all of these, per-iteration residual
+traces (``trace_len``, ``.opts(trace=...)``, :mod:`admm_tpu_torch.diag`),
+and ``predict``/``coef``, the path summary and
+``assess``/``roc``/``confusion``/``c_index``.  All six of the
 JAX package's Pallas TPU kernels are hand-written CUDA kernels here
 (``csrc/``, built with ``nvcc`` at first use)::
 
@@ -36,9 +39,16 @@ from .api import (ADMMBP, ADMMLAD, ADMMBPFit, ADMMDantzig, ADMMEnet,
 from .assess import assess, c_index, confusion, roc
 from .data.standardize import StdStats
 from .models.bp import BPResult, bp_fit, bp_fit_batch
-from .models.cv import (CVResult, cv_dantzig_path, cv_enet_path,
-                        cv_glm_path, cv_lasso_path, cv_logistic_path)
+from .models.conlasso import constrained_lasso_path, zerosum_lasso_path
+from .models.cv import (CVResult, cv_constrained_lasso_path,
+                        cv_dantzig_path, cv_enet_path, cv_fused_lasso_path,
+                        cv_gen_lasso_path, cv_glm_path, cv_group_lasso_path,
+                        cv_lasso_path, cv_logistic_path,
+                        cv_zerosum_lasso_path)
 from .models.dantzig import dantzig_path
+from .models.genlasso import (difference_matrix, difference_matrix_2d,
+                              fused_lasso_path, gen_lasso_path)
+from .models.grouplasso import group_lasso_path
 from .models.glm import (GLMFamily, binomial, binomial_cloglog,
                          binomial_probit, gamma_log, glm_lasso_path, huber,
                          huber_lasso_path, negative_binomial, poisson,
@@ -47,6 +57,8 @@ from .models.lad import LADResult, lad_fit, quantile_fit
 from .models.lasso import (PathResult, adaptive_lasso_path, enet_path,
                            lasso_path)
 from .models.logistic import logistic_lasso_path
+from .models.relaxed import (RelaxedPathResult, cv_relaxed_lasso_path,
+                             relaxed_lasso_path)
 from .predict import coef, predict
 from .summary import PathTable, deviance, format_path_table, path_table
 
@@ -62,7 +74,13 @@ __all__ = [
     "poisson_lasso_path", "GLMFamily", "binomial", "huber", "poisson",
     "binomial_probit", "binomial_cloglog", "gamma_log", "negative_binomial",
     "cv_lasso_path", "cv_enet_path", "cv_logistic_path", "cv_glm_path",
-    "cv_dantzig_path", "predict", "coef", "path_table",
+    "cv_dantzig_path", "group_lasso_path", "cv_group_lasso_path",
+    "gen_lasso_path", "fused_lasso_path", "difference_matrix",
+    "difference_matrix_2d", "cv_gen_lasso_path", "cv_fused_lasso_path",
+    "constrained_lasso_path", "zerosum_lasso_path",
+    "cv_constrained_lasso_path", "cv_zerosum_lasso_path",
+    "relaxed_lasso_path", "cv_relaxed_lasso_path", "RelaxedPathResult",
+    "predict", "coef", "path_table",
     "format_path_table", "deviance", "assess", "roc", "confusion",
     "c_index", "PathResult", "LADResult", "BPResult", "CVResult",
     "PathTable", "StdStats", "__version__",

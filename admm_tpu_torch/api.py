@@ -65,18 +65,45 @@ def _sparse_beta(beta0, coef):
     return sparse.csc_matrix(np.concatenate([beta0[:, None], coef], axis=1).T)
 
 
-class ADMMLassoFit:
-    """Lasso/Enet path fit (reference: R/30_admm_lasso.R:18-22).
+def _trace_array(trace):
+    return None if trace is None else trace.detach().cpu().numpy()
+
+
+class _FitResult:
+    #: (nlambda, trace_len, 5) or (trace_len, 5) numpy array of the
+    #: per-iteration (eps_pri, r_pri, eps_dua, r_dua, rho), or None when
+    #: tracing was off: the reference's (dead) residual printers as data
+    #: (reference: src/ADMMBase.h:111-146).
+    trace = None
+
+    def format_trace(self, i: int = 0) -> str:
+        """Render one solve's recorded trace as the reference's debug
+        table (reference: src/ADMMBase.h:111-146).  ``i`` indexes the
+        lambda for path fits; ignored for single-solve fits."""
+        if self.trace is None:
+            raise ValueError(
+                "no trace recorded — fit with .opts(trace=True)")
+        from .diag.trace import format_trace, trace_from_buffer
+
+        buf = self.trace if self.trace.ndim == 2 else self.trace[i]
+        title = ("ADMM iterations" if self.trace.ndim == 2
+                 else f"ADMM iterations (lambda index {i})")
+        return format_trace(trace_from_buffer(buf), title=title)
+
+
+class ADMMLassoFit(_FitResult):
+    """Lasso/Enet/Dantzig path fit (reference: R/30_admm_lasso.R:18-22).
 
     Attributes: ``lambda_`` (nlambda,), ``beta`` sparse (p+1) x nlambda
-    with intercepts in row 0, ``niter`` (nlambda,).
+    with intercepts in row 0, ``niter`` (nlambda,), ``trace``
+    (per-iteration residuals when requested via ``.opts(trace=True)``).
     """
 
-    def __init__(self, lambda_, beta, niter):
+    def __init__(self, lambda_, beta, niter, trace=None):
         self.lambda_ = np.asarray(lambda_)
         self.beta = beta
         self.niter = np.asarray(niter)
-        self.trace = None  # the traced solves are not ported yet
+        self.trace = _trace_array(trace)
 
     def __repr__(self):
         return (f"{type(self).__name__}(lambda_={self.lambda_!r}, "
@@ -92,14 +119,14 @@ def _to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-class ADMMLADFit:
+class ADMMLADFit(_FitResult):
     """LAD fit (reference: R/20_admm_lad.R): dense ``beta``, intercept
-    first, and ``niter``."""
+    first, ``niter`` and ``trace``."""
 
-    def __init__(self, beta, niter):
+    def __init__(self, beta, niter, trace=None):
         self.beta = np.asarray(beta)
         self.niter = int(niter)
-        self.trace = None
+        self.trace = _trace_array(trace)
 
     def __repr__(self):
         return f"{type(self).__name__}(niter={self.niter!r})"
@@ -110,16 +137,16 @@ class ADMMLADFit:
             "fit.plot() is not ported to admm_tpu_torch yet")
 
 
-class ADMMBPFit:
+class ADMMBPFit(_FitResult):
     """Basis-Pursuit fit (reference: R/10_admm_bp.R): sparse (p, 1)
-    ``beta`` and ``niter``."""
+    ``beta``, ``niter`` and ``trace``."""
 
-    def __init__(self, beta, niter):
+    def __init__(self, beta, niter, trace=None):
         from scipy import sparse
 
         self.beta = sparse.csc_matrix(np.asarray(beta)[:, None])
         self.niter = int(niter)
-        self.trace = None
+        self.trace = _trace_array(trace)
 
     def __repr__(self):
         return f"{type(self).__name__}(niter={self.niter!r})"
@@ -155,6 +182,7 @@ class ADMMLasso:
         self.eps_rel = self._eps_default
         self.rho = self._rho_default
         self.path_mode = "batch"
+        self.trace = False
         self.penalty_factor = None
         self.lower_limits = None
         self.upper_limits = None
@@ -208,11 +236,11 @@ class ADMMLasso:
              rho: Optional[float] = None, path_mode: str = "batch",
              trace=False, **kw):
         """(reference: R/30_admm_lasso.R:115-133).  ``path_mode``:
-        "batch" (default), "scan" or "activeset", which ``fit()`` hands to
-        ``lasso_path`` (it raises there: ``ValueError`` where the JAX
-        package refuses the mode, ``NotImplementedError`` otherwise, the
-        active-set solver not being ported yet); ``trace`` is not ported
-        yet and raises."""
+        "batch" (default), "scan" or "activeset" (the wide regime's
+        gathered active set; ``fit()`` raises ``ValueError`` for it on
+        tall data).  ``trace``: ``True`` records the first 512 iterations'
+        residuals per lambda in ``fit.trace``, an int that many (at most
+        ``maxit``); a traced fit runs on the engine."""
         if maxit <= 0:
             raise ValueError("maxit should be positive")
         eps_abs = self._eps_default if eps_abs is None else eps_abs
@@ -224,15 +252,21 @@ class ADMMLasso:
         if path_mode not in ("batch", "scan", "activeset"):
             raise ValueError(
                 "path_mode must be 'batch', 'scan' or 'activeset'")
-        if trace is not False:
-            raise NotImplementedError(
-                "trace is not ported to admm_tpu_torch yet")
+        if trace is not False and trace is not True and int(trace) <= 0:
+            raise ValueError("trace must be a bool or a positive int")
         self.maxit = int(maxit)
         self.eps_abs = float(eps_abs)
         self.eps_rel = float(eps_rel)
         self.rho = -1.0 if rho is None else float(rho)
         self.path_mode = path_mode
+        self.trace = trace
         return self
+
+    def _trace_len(self) -> Optional[int]:
+        if self.trace is False:
+            return None
+        n = 512 if self.trace is True else int(self.trace)
+        return min(n, self.maxit)
 
     # -- fitting ----------------------------------------------------------
     def _path_kwargs(self):
@@ -241,7 +275,8 @@ class ADMMLasso:
                     standardize=self.standardize, intercept=self.intercept,
                     maxit=self.maxit, eps_abs=self.eps_abs,
                     eps_rel=self.eps_rel, rho=self.rho,
-                    path_mode=self.path_mode, device=self.device)
+                    path_mode=self.path_mode, trace_len=self._trace_len(),
+                    device=self.device)
 
     def _option_kwargs(self):
         return dict(penalty_factor=self.penalty_factor,
@@ -251,7 +286,8 @@ class ADMMLasso:
     def _fit_result(self, res) -> ADMMLassoFit:
         return ADMMLassoFit(res.lambdas.detach().cpu().numpy(),
                             _sparse_beta(res.beta0, res.coef),
-                            res.niter.detach().cpu().numpy())
+                            res.niter.detach().cpu().numpy(),
+                            trace=res.trace)
 
     def fit(self) -> ADMMLassoFit:
         """(reference: R/30_admm_lasso.R:136-160)"""
@@ -349,6 +385,7 @@ class ADMMBP:
         # None = the solver's own default (5.0; see models/lad.py);
         # .opts(rho=1.0) restores the reference's literal default.
         self.rho = None
+        self.trace = False
 
     def _eps_default(self) -> float:
         """The reference's 1e-4 is a float64 tolerance (reference:
@@ -389,7 +426,7 @@ class ADMMBP:
              rho: Optional[float] = None, trace=False, **kw):
         """(reference: R/10_admm_bp.R:80-97).  eps defaults follow the
         precision and are resolved at fit time; ``rho=None`` keeps the
-        solver's default.  ``trace`` is not ported yet and raises."""
+        solver's default.  ``trace`` as in :meth:`ADMMLasso.opts`."""
         if maxit <= 0:
             raise ValueError("maxit should be positive")
         if eps_abs is not None and eps_abs < 0:
@@ -400,24 +437,24 @@ class ADMMBP:
             raise ValueError("rho should be positive")
         if trace is not False and trace is not True and int(trace) <= 0:
             raise ValueError("trace must be a bool or a positive int")
-        if trace is not False:
-            raise NotImplementedError(
-                "trace is not ported to admm_tpu_torch yet")
         self.maxit = int(maxit)
         self.eps_abs = eps_abs
         self.eps_rel = eps_rel
         self.rho = None if rho is None else float(rho)
+        self.trace = trace
         return self
+
+    _trace_len = ADMMLasso._trace_len
 
     def _fit_kwargs(self):
         return dict(maxit=self.maxit, eps_abs=self.eps_abs,
                     eps_rel=self.eps_rel, rho=self.rho, dtype=self.dtype,
-                    device=self.device)
+                    trace_len=self._trace_len(), device=self.device)
 
     def fit(self) -> ADMMBPFit:
         """(reference: R/10_admm_bp.R:100-120)"""
         res = bp_fit(self.x, self.y, **self._fit_kwargs())
-        return ADMMBPFit(_to_numpy(res.coef), res.niter)
+        return ADMMBPFit(_to_numpy(res.coef), res.niter, trace=res.trace)
 
     def __repr__(self):
         n, p = self.x.shape
@@ -452,7 +489,7 @@ class ADMMLAD(ADMMBP):
                       **self._fit_kwargs())
         beta = np.concatenate([np.atleast_1d(_to_numpy(res.beta0)),
                                _to_numpy(res.coef)])
-        return ADMMLADFit(beta, res.niter)
+        return ADMMLADFit(beta, res.niter, trace=res.trace)
 
 
 # -- the reference's five exported constructors --------------------------

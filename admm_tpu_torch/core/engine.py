@@ -182,6 +182,47 @@ def _run(body, state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
     return state
 
 
+def _trace_row(state: ADMMState) -> torch.Tensor:
+    """One trace row per lane, ``(..., 5)``: (eps_pri, r_pri, eps_dua,
+    r_dua, rho)."""
+    return torch.stack([state.eps_pri, state.r_pri, state.eps_dua,
+                        state.r_dua, state.rho], dim=-1)
+
+
+def make_traced_solve(solve, trace_len: int):
+    """Wrap an engine's ``solve`` so a per-iteration residual trace is
+    recorded (counterpart of ``admm_tpu.core.engine.make_traced_solve``).
+
+    The reference has residual-table printers wired into its engines but
+    commented out of the loops (reference: src/ADMMBase.h:111-146, call
+    sites :196,204,213).  Here a preallocated ``(trace_len, 5)`` buffer of
+    NaN on the state's device, in its dtype, takes ``(eps_primal,
+    resid_primal, eps_dual, resid_dual, rho)`` at row ``min(it, trace_len
+    - 1)`` each iteration, written through a device index: the host loop
+    keeps its one ``done`` read per iteration and reads nothing else.
+    Rows past convergence stay NaN; iterations past ``trace_len``
+    overwrite the last row.
+
+    Returns ``solve_traced(state, maxit, eps_abs, eps_rel) -> (state,
+    buffer)``.
+    """
+    body = solve.body
+
+    def solve_traced(state: ADMMState, maxit, eps_abs, eps_rel):
+        eps_abs, eps_rel = _as_scalars(state, eps_abs, eps_rel)
+        buf = torch.full((trace_len, 5), float("nan"),
+                         dtype=state.rho.dtype, device=state.rho.device)
+        it = int(state.it)
+        while it < maxit and not bool(state.done):
+            idx = torch.clamp(state.it, max=trace_len - 1).long().reshape(1)
+            state = body(state, eps_abs, eps_rel)
+            buf.index_copy_(0, idx, _trace_row(state).reshape(1, 5))
+            it += 1
+        return state, buf
+
+    return solve_traced
+
+
 def make_admm_solver(ops: ProblemOps, *, adapt_rho: bool = True,
                      rho_start_iter: int = 3):
     """Vanilla ADMM engine (reference: src/ADMMBase.h:192-216).
@@ -292,20 +333,56 @@ def make_batched_solver(solve):
     """
     body = solve.body
 
-    def freeze(old: ADMMState, new: ADMMState) -> ADMMState:
-        d = old.done
-
-        def f(a, b):
-            if a is None:
-                return None
-            return torch.where(d.reshape(d.shape + (1,) * (b.dim() - d.dim())),
-                               a, b)
-        return ADMMState(*(f(a, b) for a, b in zip(old, new)))
-
     def solve_batched(states: ADMMState, maxit, eps_abs, eps_rel):
         eps_abs, eps_rel = _as_scalars(states, eps_abs, eps_rel)
         while bool(torch.any(~states.done & (states.it < maxit))):
-            states = freeze(states, body(states, eps_abs, eps_rel))
+            states = _freeze(states, body(states, eps_abs, eps_rel))
         return states
 
     return solve_batched
+
+
+def _freeze(old: ADMMState, new: ADMMState) -> ADMMState:
+    """Lanes that were done before the step keep their state."""
+    d = old.done
+
+    def f(a, b):
+        if a is None:
+            return None
+        return torch.where(d.reshape(d.shape + (1,) * (b.dim() - d.dim())),
+                           a, b)
+    return ADMMState(*(f(a, b) for a, b in zip(old, new)))
+
+
+def make_batched_traced_solve(solve, trace_len: int):
+    """Batched-lane engine with a PER-LANE residual trace (counterpart of
+    ``admm_tpu.core.engine.make_batched_traced_solve``).
+
+    Lane l records its own row at ``min(it_l, trace_len - 1)`` of a
+    ``(k, trace_len, 5)`` buffer of NaN; lanes that were done before the
+    step stop recording, exactly as they stop iterating, so a lane's count
+    of recorded rows is its ``niter`` (up to ``trace_len``).  The rows are
+    written by indexed assignment on the device.
+
+    Returns ``solve_traced(states, maxit, eps_abs, eps_rel) -> (states,
+    buffer)``.
+    """
+    body = solve.body
+
+    def solve_batched_traced(states: ADMMState, maxit, eps_abs, eps_rel):
+        eps_abs, eps_rel = _as_scalars(states, eps_abs, eps_rel)
+        k = states.rho.shape[0]
+        dev = states.rho.device
+        buf = torch.full((k, trace_len, 5), float("nan"),
+                         dtype=states.rho.dtype, device=dev)
+        lanes = torch.arange(k, device=dev)
+        while bool(torch.any(~states.done & (states.it < maxit))):
+            idx = torch.clamp(states.it, max=trace_len - 1).long()
+            active = ~states.done
+            states = _freeze(states, body(states, eps_abs, eps_rel))
+            buf[lanes, idx] = torch.where(active[:, None],
+                                          _trace_row(states),
+                                          buf[lanes, idx])
+        return states, buf
+
+    return solve_batched_traced

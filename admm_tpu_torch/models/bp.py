@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.engine import (ProblemOps, col, make_batched_solver,
-                           make_fadmm_solver, make_state)
+                           make_fadmm_solver, make_state, make_traced_solve)
 from ..core.prox import l2norm, soft_threshold, sqnorm
 from ..kernels import bp as bp_kernel
 from ..linalg import chol_inverse, dot, tgram
@@ -48,7 +48,9 @@ def _use_kernel_bp(n: int, p: int, dtype) -> bool:
 class BPResult(NamedTuple):
     coef: torch.Tensor   # (p,) the sparse iterate z (reference: src/BP.cpp:37-43)
     niter: torch.Tensor  # int32
-    trace: Optional[torch.Tensor] = None   # traced solves: not ported yet
+    # (trace_len, 5) per-iteration (eps_pri, r_pri, eps_dua, r_dua, rho)
+    # when tracing was requested (admm_tpu_torch.diag.trace).
+    trace: Optional[torch.Tensor] = None
 
 
 def _bp_ops(A, K, n, p, aaab_of) -> ProblemOps:
@@ -81,8 +83,9 @@ def _bp_setup(A):
     return chol_inverse(tgram(A), jitter=jitter)
 
 
-def _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel):
-    """One signal through the generic FADMM engine."""
+def _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
+    """One signal through the generic FADMM engine, traced when
+    ``trace_len`` is set."""
     n, p = A.shape
     Winv = _bp_setup(A)
     AAAb = dot(A.mT, dot(Winv, b))                # A'(AA')^-1 b
@@ -90,15 +93,20 @@ def _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel):
     solve = make_fadmm_solver(_bp_ops(A, K, n, p, lambda st: AAAb),
                               adapt_rho=False)
     zeros = torch.zeros((p,), dtype=A.dtype, device=A.device)
-    st = solve(make_state(zeros, zeros, zeros, rho, 0.0), maxit, eps_abs,
-               eps_rel)
-    return BPResult(coef=st.z, niter=st.it)
+    st0 = make_state(zeros, zeros, zeros, rho, 0.0)
+    if trace_len is None:
+        st, buf = solve(st0, maxit, eps_abs, eps_rel), None
+    else:
+        st, buf = make_traced_solve(solve, trace_len)(st0, maxit, eps_abs,
+                                                      eps_rel)
+    return BPResult(coef=st.z, niter=st.it, trace=buf)
 
 
-def _bp_fit(A, b, rho, maxit, eps_abs, eps_rel):
+def _bp_fit(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
     n, p = A.shape
-    if not _use_kernel_bp(n, p, A.dtype):
-        return _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel)
+    # A traced solve takes the engine, as in the JAX package.
+    if trace_len is not None or not _use_kernel_bp(n, p, A.dtype):
+        return _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel, trace_len)
     # One signal is a batch of one lane: the kernel keeps the whole loop on
     # the device, where the engine reads ``done`` on the host every
     # iteration.
@@ -140,15 +148,17 @@ def bp_fit(A, b, *, maxit: int = 10000, eps_abs: Optional[float] = None,
     global x64 flag here; torch has none), with eps 2e-5 and the BP
     kernel on the card; ``dtype=torch.float64`` is the explicit way to
     the reference's double precision and takes the engine with the
-    reference's eps 1e-4.  rho defaults to 5.  ``trace_len`` and
-    ``data_mesh`` are not ported yet and raise ``NotImplementedError``.
+    reference's eps 1e-4.  rho defaults to 5.  ``trace_len`` records the
+    per-iteration residual trace, on the engine (never the kernel).
+    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
     """
-    _not_ported(trace_len=trace_len, data_mesh=data_mesh)
+    _not_ported(data_mesh=data_mesh)
     dtype, eps_abs, eps_rel, rho = _f64_class_defaults(dtype, eps_abs,
                                                        eps_rel, rho)
     A = _as_tensor(A, dtype, device)
     b = _as_tensor(b, dtype, A.device).reshape(-1)
-    return _bp_fit(A, b, rho, maxit, eps_abs, eps_rel)
+    return _bp_fit(A, b, rho, maxit, eps_abs, eps_rel,
+                   None if trace_len is None else int(trace_len))
 
 
 def bp_fit_batch(A, B, *, maxit: int = 10000,

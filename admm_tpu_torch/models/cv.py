@@ -1,6 +1,8 @@
 """K-fold cross-validation over the lambda path (counterpart of
 ``admm_tpu/models/cv.py``, for the models the port holds: the gaussian
-Lasso/Elastic Net, the GLM families and the Dantzig selector).
+Lasso/Elastic Net, the GLM families, the Dantzig selector, the
+(sparse-)group, generalized/fused and constrained/zero-sum Lasso; the
+relaxed lasso's CV is in :mod:`admm_tpu_torch.models.relaxed`).
 
 Conventions follow glmnet's ``cv.glmnet``: the lambda grid comes from the
 full-data fit; fold f's model is the path fitted without fold f's rows and
@@ -570,3 +572,127 @@ def cv_dantzig_path(X, y, *, nlambda: int = 100,
                          standardize=standardize, intercept=intercept,
                          _path_fn=path_fn, _fold_eta_fn=fold_eta,
                          device=device, **kw)
+
+
+def cv_group_lasso_path(X, y, groups, *, weights=None, nlambda: int = 100,
+                        lambda_min_ratio: Optional[float] = None,
+                        standardize: bool = True, intercept: bool = True,
+                        maxit: int = 10000, eps_abs: float = 1e-5,
+                        eps_rel: float = 1e-5, rho: float = -1.0,
+                        obs_weights=None, l1_ratio: float = 0.0,
+                        device="cuda", **kw) -> CVResult:
+    """Cross-validated (sparse-)group-Lasso path (same fold protocol as
+    :func:`cv_lasso_path`; the folds run the weighted group path on the
+    engine), plus ``device``.  ``weights`` are the GROUP penalty weights,
+    ``obs_weights`` the observation weights (the group path's naming)."""
+    from .grouplasso import _gl_path, group_lasso_path, normalize_groups
+
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return group_lasso_path(Xf, yf, groups, weights=weights,
+                                lambdas=lambdas, nlambda=nlambda,
+                                lambda_min_ratio=lambda_min_ratio,
+                                standardize=standardize,
+                                intercept=intercept, maxit=maxit,
+                                eps_abs=eps_abs, eps_rel=eps_rel, rho=rho,
+                                obs_weights=wf, l1_ratio=l1_ratio,
+                                dtype=dtype, device=device)
+
+    def fold_eta(Xf, yf, lams, masks, fid):
+        gi, gw = normalize_groups(groups, Xf.shape[1], weights, Xf.dtype,
+                                  Xf.device)
+        return _fold_sweep(Xf, masks, fid, lambda mask: _gl_path(
+            Xf, yf, gi, gw, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel,
+            mask, standardize_x=standardize, intercept=intercept,
+            l1_ratio=float(l1_ratio)))
+
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         standardize=standardize, intercept=intercept,
+                         weights=obs_weights, _path_fn=path_fn,
+                         _fold_eta_fn=fold_eta, device=device, **kw)
+
+
+def cv_gen_lasso_path(X, y, D, *, nlambda: int = 50,
+                      lambda_min_ratio: float = 1e-3,
+                      intercept: bool = True, maxit: int = 10000,
+                      eps_abs: float = 1e-5, eps_rel: float = 1e-5,
+                      rho: float = -1.0, path_mode: str = "batch",
+                      device="cuda", **kw) -> CVResult:
+    """Cross-validated generalized-Lasso path: selects lambda for a (m, p)
+    structure matrix ``D`` (fused lasso, trend filtering) by held-out MSE;
+    same fold protocol as :func:`cv_lasso_path` (each fold the weighted
+    batch path on the engine), plus ``device``."""
+    from .genlasso import _gen_path, gen_lasso_path
+
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return gen_lasso_path(Xf, yf, D, lambdas=lambdas, nlambda=nlambda,
+                              lambda_min_ratio=lambda_min_ratio,
+                              intercept=intercept, maxit=maxit,
+                              eps_abs=eps_abs, eps_rel=eps_rel, rho=rho,
+                              path_mode=path_mode, weights=wf, dtype=dtype,
+                              device=device)
+
+    def fold_eta(Xf, yf, lams, masks, fid):
+        Dt = _as_tensor(D, Xf.dtype, Xf.device)
+        return _fold_sweep(Xf, masks, fid, lambda mask: _gen_path(
+            Xf, yf, Dt, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
+            intercept=intercept, path_mode="batch"))
+
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         intercept=intercept, _path_fn=path_fn,
+                         _fold_eta_fn=fold_eta, device=device, **kw)
+
+
+def cv_fused_lasso_path(X, y, *, order: int = 1, **kw) -> CVResult:
+    """Cross-validated fused lasso / trend filtering (the generalized
+    Lasso with the discrete difference operator)."""
+    from .genlasso import difference_matrix
+
+    p = X.shape[1] if hasattr(X, "shape") else np.shape(X)[1]
+    return cv_gen_lasso_path(X, y, difference_matrix(int(p), order), **kw)
+
+
+def cv_constrained_lasso_path(X, y, C, d=None, *, nlambda: int = 50,
+                              lambda_min_ratio: float = 1e-3,
+                              intercept: bool = True, maxit: int = 10000,
+                              eps_abs: float = 1e-5, eps_rel: float = 1e-5,
+                              rho: float = -1.0, device="cuda",
+                              **kw) -> CVResult:
+    """Cross-validated equality-constrained lasso path: every fold fit
+    honors ``C b = d`` (same fold protocol as :func:`cv_lasso_path`, each
+    fold the weighted batch path on the engine), plus ``device``."""
+    from .conlasso import _conlasso_fold_etas, constrained_lasso_path
+
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return constrained_lasso_path(
+            Xf, yf, C, d, lambdas=lambdas, nlambda=nlambda,
+            lambda_min_ratio=lambda_min_ratio, intercept=intercept,
+            weights=wf, maxit=maxit, eps_abs=eps_abs, eps_rel=eps_rel,
+            rho=rho, dtype=dtype, device=device)
+
+    def fold_eta(Xf, yf, lams, masks, fid):
+        C_t = torch.atleast_2d(_as_tensor(C, Xf.dtype, Xf.device))
+        d_t = (torch.zeros((C_t.shape[0],), dtype=Xf.dtype,
+                           device=Xf.device) if d is None
+               else _as_tensor(d, Xf.dtype, Xf.device).reshape(-1))
+        return _conlasso_fold_etas(Xf, yf, C_t, d_t, lams, masks, fid, rho,
+                                   maxit, eps_abs, eps_rel,
+                                   intercept=intercept)
+
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         intercept=intercept, _path_fn=path_fn,
+                         _fold_eta_fn=fold_eta, device=device, **kw)
+
+
+def cv_zerosum_lasso_path(X, y, **kw) -> CVResult:
+    """Cross-validated zero-sum lasso (the one-row constrained case)."""
+    p = X.shape[1] if hasattr(X, "shape") else np.shape(X)[1]
+    return cv_constrained_lasso_path(X, y, np.ones((1, p)), **kw)

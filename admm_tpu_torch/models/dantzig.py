@@ -112,11 +112,12 @@ def _dantzig_engine(Xs, ys, lam_first, rho0):
     return st0, solve, (lambda st: st.x)
 
 
-def _solve_path_dantzig(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel):
+def _solve_path_dantzig(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
+                        trace_len=None):
     st0, solve, report = _dantzig_engine(Xs, ys, ilams[0], rho0)
-    _, coefs, niter = _scan_path(st0, solve, report, ilams, maxit, eps_abs,
-                                 eps_rel)
-    return coefs, niter
+    _, coefs, niter, traces = _scan_path(st0, solve, report, ilams, maxit,
+                                         eps_abs, eps_rel, trace_len)
+    return coefs, niter, traces
 
 
 def _solve_path_dantzig_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel):
@@ -128,38 +129,42 @@ def _solve_path_dantzig_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel):
     solve = make_batched_solver(make_admm_solver(ops, adapt_rho=False))
     st = _batched_cold_states(ilams.shape[0], p, rho, ilams, aux_dim=p)
     st = solve(st, maxit, eps_abs, eps_rel)
-    return st.x, st.it
+    return st.x, st.it, None
 
 
 def _dpath_auto(X, y, nlambda, lambda_min_ratio, rho, maxit, eps_abs,
                 eps_rel, weights=None, *, standardize_x, intercept,
-                path_mode):
+                path_mode, trace_len=None):
     Xs, ys, stats = standardize(X, y, standardize_x=standardize_x,
                                 intercept=intercept, weights=weights)
     lams = _auto_lambdas(Xs, ys, stats, nlambda, lambda_min_ratio, 1.0,
                          False)
     return _dpath_from(Xs, ys, stats, lams, rho, maxit, eps_abs, eps_rel,
-                       standardize_x, intercept, path_mode)
+                       standardize_x, intercept, path_mode, trace_len)
 
 
 def _dpath_user(X, y, lams, rho, maxit, eps_abs, eps_rel, weights=None, *,
-                standardize_x, intercept, path_mode):
+                standardize_x, intercept, path_mode, trace_len=None):
     Xs, ys, stats = standardize(X, y, standardize_x=standardize_x,
                                 intercept=intercept, weights=weights)
     return _dpath_from(Xs, ys, stats, lams, rho, maxit, eps_abs, eps_rel,
-                       standardize_x, intercept, path_mode)
+                       standardize_x, intercept, path_mode, trace_len)
 
 
 def _dpath_from(Xs, ys, stats, lams, rho, maxit, eps_abs, eps_rel,
-                standardize_x, intercept, path_mode="scan"):
+                standardize_x, intercept, path_mode="scan", trace_len=None):
     n = Xs.shape[0]
     ilams = lams * n / stats.scale_y
-    solve = (_solve_path_dantzig_batch if path_mode == "batch"
-             else _solve_path_dantzig)
-    coefs, niter = solve(Xs, ys, ilams, rho, maxit, eps_abs, eps_rel)
+    if path_mode == "batch":
+        coefs, niter, traces = _solve_path_dantzig_batch(
+            Xs, ys, ilams, rho, maxit, eps_abs, eps_rel)
+    else:
+        coefs, niter, traces = _solve_path_dantzig(
+            Xs, ys, ilams, rho, maxit, eps_abs, eps_rel, trace_len)
     beta0, coef = recover(stats, coefs, standardize_x=standardize_x,
                           intercept=intercept)
-    return PathResult(lambdas=lams, beta0=beta0, coef=coef, niter=niter)
+    return PathResult(lambdas=lams, beta0=beta0, coef=coef, niter=niter,
+                      trace=traces)
 
 
 def dantzig_path(X, y, *, lambdas=None, nlambda: int = 100,
@@ -184,10 +189,14 @@ def dantzig_path(X, y, *, lambdas=None, nlambda: int = 100,
     shared sqrt(w) row scaling (``data/standardize.py``), so an integer
     weight k equals repeating the row k times.
 
-    ``trace_len`` and ``data_mesh`` are not ported yet and raise
+    ``trace_len`` records the per-iteration residual trace of each lambda
+    (implies "scan").  ``data_mesh`` is not ported yet and raises
     ``NotImplementedError``.
     """
-    _not_ported(trace_len=trace_len, data_mesh=data_mesh)
+    _not_ported(data_mesh=data_mesh)
+    if trace_len is not None:
+        path_mode = "scan"
+        trace_len = int(trace_len)
     X = _as_tensor(X, dtype, device)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     n, p = X.shape
@@ -196,7 +205,7 @@ def dantzig_path(X, y, *, lambdas=None, nlambda: int = 100,
     w = (None if weights is None
          else _as_tensor(weights, dtype, X.device).reshape(-1))
     kw = dict(standardize_x=standardize, intercept=intercept,
-              path_mode=path_mode)
+              path_mode=path_mode, trace_len=trace_len)
     if lambdas is not None:
         lams = torch.sort(_as_tensor(lambdas, dtype, X.device).reshape(-1),
                           descending=True).values

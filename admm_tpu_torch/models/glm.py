@@ -610,7 +610,7 @@ def _glm_path(X, y, nlambda, lambda_min_ratio, user_lams, rho, maxit,
               eps_abs, eps_rel, alpha, weights=None, offset=None,
               pf=None, limits=None, *,
               family, standardize_x, intercept, path_mode,
-              newton_steps=_NEWTON_STEPS, hessian="auto"):
+              trace_len=None, newton_steps=_NEWTON_STEPS, hessian="auto"):
     n, p = X.shape
     dtype, dev = X.dtype, X.device
     fam = family() if not isinstance(family, GLMFamily) else family
@@ -710,13 +710,15 @@ def _glm_path(X, y, nlambda, lambda_min_ratio, user_lams, rho, maxit,
     if path_mode == "batch":
         st = _batched_cold_states(lams.shape[0], q, st0.rho, lams)
         st = make_batched_solver(solve)(st, maxit, eps_abs, eps_rel)
-        coefs_a, niter = st.z, st.it
+        coefs_a, niter, traces = st.z, st.it, None
     else:
-        _, coefs_a, niter = _scan_path(st0, solve, report, lams, maxit,
-                                       eps_abs, eps_rel, refresh=refresh)
+        _, coefs_a, niter, traces = _scan_path(
+            st0, solve, report, lams, maxit, eps_abs, eps_rel, trace_len,
+            refresh=refresh)
 
     beta0, coef = recover_glm(coefs_a, mean_x, sd_x, intercept)
-    return PathResult(lambdas=lams, beta0=beta0, coef=coef, niter=niter)
+    return PathResult(lambdas=lams, beta0=beta0, coef=coef, niter=niter,
+                      trace=traces)
 
 
 def glm_lasso_path(X, y, family, *, lambdas=None, nlambda: int = 50,
@@ -770,10 +772,14 @@ def glm_lasso_path(X, y, family, *, lambdas=None, nlambda: int = 50,
     fixed-majorizer path of binomial and huber through the CUDA kernel;
     ``torch.float64`` takes the engine.
 
-    Not ported yet, and raising ``NotImplementedError`` when given:
-    ``trace_len`` and ``data_mesh``.
+    ``trace_len`` records each lambda's per-iteration residual trace and
+    forces ``path_mode="scan"`` (the engine, never the kernel).
+    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
     """
-    _not_ported(trace_len=trace_len, data_mesh=data_mesh)
+    _not_ported(data_mesh=data_mesh)
+    if trace_len is not None:
+        path_mode = "scan"
+        trace_len = int(trace_len)
     if dtype is None:
         dtype = torch.float32
     X = _as_tensor(X, dtype, device)
@@ -801,7 +807,8 @@ def glm_lasso_path(X, y, family, *, lambdas=None, nlambda: int = 50,
                     eps_abs, eps_rel, alpha, w, off, pf, limits,
                     family=family, standardize_x=standardize,
                     intercept=intercept, path_mode=path_mode,
-                    newton_steps=int(newton_steps), hessian=hessian)
+                    trace_len=trace_len, newton_steps=int(newton_steps),
+                    hessian=hessian)
     if dfmax is not None or pmax is not None:
         res = _truncate_path(res, dfmax, pmax)
     return res

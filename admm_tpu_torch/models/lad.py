@@ -36,7 +36,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.engine import ProblemOps, col, make_fadmm_solver, make_state
+from ..core.engine import (ProblemOps, col, make_fadmm_solver, make_state,
+                           make_traced_solve)
 from ..core.prox import l2norm, sqnorm
 from ..data.standardize import recover, standardize
 from ..kernels import lad as lad_kernel
@@ -54,7 +55,9 @@ class LADResult(NamedTuple):
     beta0: torch.Tensor  # scalar intercept (0 when intercept=False)
     coef: torch.Tensor   # (p,) coefficients on the original scale
     niter: torch.Tensor  # int32
-    trace: Optional[torch.Tensor] = None   # traced solves: not ported yet
+    # (trace_len, 5) per-iteration (eps_pri, r_pri, eps_dua, r_dua, rho)
+    # when tracing was requested (admm_tpu_torch.diag.trace).
+    trace: Optional[torch.Tensor] = None
 
 
 def _asym_soft_threshold(v, t_pos, t_neg):
@@ -135,7 +138,8 @@ def _hat_matrix(Xa, Ginv):
     return dot(Xa, dot(Ginv, Xa.mT)).contiguous()
 
 
-def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5):
+def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5,
+             trace_len=None):
     n = X.shape[0]
     dtype, dev = X.dtype, X.device
     Xa, ys, stats, Ginv, ynorm = _lad_setup(X, y, intercept)
@@ -144,7 +148,9 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5):
     rho_host = float(rho)
     rho = torch.as_tensor(rho, dtype=dtype, device=dev)
 
-    if _use_kernel_lad(n, dtype, tau):
+    buf = None
+    # A traced solve takes the engine, as in the JAX package.
+    if trace_len is None and _use_kernel_lad(n, dtype, tau):
         adj_y, adj_z, niter = lad_kernel.lad_solve(
             _hat_matrix(Xa, Ginv), ys.contiguous(), rho_host, eps_abs,
             eps_rel, ynorm, maxit)
@@ -152,8 +158,12 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5):
         ops = _lad_ops(Xa, ys, Ginv, ynorm, n, Xa.shape[1], tau=tau)
         solve = make_fadmm_solver(ops, adapt_rho=False)
         zeros = torch.zeros((n,), dtype=dtype, device=dev)
-        st = solve(make_state(zeros, zeros, zeros, rho, 0.0), maxit,
-                   eps_abs, eps_rel)
+        st0 = make_state(zeros, zeros, zeros, rho, 0.0)
+        if trace_len is None:
+            st = solve(st0, maxit, eps_abs, eps_rel)
+        else:
+            st, buf = make_traced_solve(solve, trace_len)(st0, maxit,
+                                                          eps_abs, eps_rel)
         adj_y, adj_z, niter = st.adj_y, st.adj_z, st.it
 
     # beta = (X'X)^-1 X' (y - adj_y/rho + adj_z)
@@ -169,7 +179,7 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5):
     else:
         beta0, coef = recover(stats, coef_std, standardize_x=True,
                               intercept=False)
-    return LADResult(beta0=beta0, coef=coef, niter=niter)
+    return LADResult(beta0=beta0, coef=coef, niter=niter, trace=buf)
 
 
 def _f64_class_defaults(dtype, eps_abs, eps_rel, rho):
@@ -201,15 +211,17 @@ def lad_fit(X, y, *, intercept: bool = True, maxit: int = 10000,
     global x64 flag here; torch has none), with eps 2e-5 and the LAD
     kernel on the card; ``dtype=torch.float64`` is the explicit way to
     the reference's double precision and takes the engine with the
-    reference's eps 1e-4.  rho defaults to 5.  ``trace_len`` and
-    ``data_mesh`` are not ported yet and raise ``NotImplementedError``.
+    reference's eps 1e-4.  rho defaults to 5.  ``trace_len`` records the
+    per-iteration residual trace, on the engine (never the kernel).
+    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
     """
-    _not_ported(trace_len=trace_len, data_mesh=data_mesh)
+    _not_ported(data_mesh=data_mesh)
     dtype, eps_abs, eps_rel, rho = _f64_class_defaults(dtype, eps_abs,
                                                        eps_rel, rho)
     X = _as_tensor(X, dtype, device)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
-    return _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, intercept=intercept)
+    return _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, intercept=intercept,
+                    trace_len=None if trace_len is None else int(trace_len))
 
 
 def quantile_fit(X, y, *, tau: float = 0.5, intercept: bool = True,
@@ -228,7 +240,7 @@ def quantile_fit(X, y, *, tau: float = 0.5, intercept: bool = True,
     """
     if not 0.0 < tau < 1.0:
         raise ValueError("tau must be in (0, 1)")
-    _not_ported(trace_len=trace_len, data_mesh=data_mesh)
+    _not_ported(data_mesh=data_mesh)
     dtype, eps_abs, eps_rel, rho = _f64_class_defaults(dtype, eps_abs,
                                                        eps_rel, rho)
     X = _as_tensor(X, dtype, device)
@@ -236,4 +248,5 @@ def quantile_fit(X, y, *, tau: float = 0.5, intercept: bool = True,
     if X.shape[0] <= X.shape[1]:
         raise ValueError("nrow(x) must be greater than ncol(x)")
     return _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, intercept=intercept,
-                    tau=float(tau))
+                    tau=float(tau),
+                    trace_len=None if trace_len is None else int(trace_len))

@@ -81,6 +81,10 @@ DANTZIG_SHAPE = (2000, 200, 20)           # n, p, nlambda
 # niter the target.
 GLM_COEF_BAR = 2e-5
 GLM_SHAPE, GLM_LARGE_SHAPE = (2000, 200, 30), (10000, 1000, 100)
+# The active-set comparison (n, p, nonzero slopes, nlambda): the sizes of
+# the JAX package's benchmarks/wide_activeset_bench.py.
+ACTIVESET_SIZES = ((1000, 2000, 100, 100), (1000, 10000, 200, 50),
+                   (5000, 20000, 400, 20))
 HUBER_M = 1.345
 # The card's published peaks (H100 SXM data sheet), for the bounds.
 PEAK_BYTES_PER_S = 3.35e12
@@ -446,6 +450,389 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
     smoke.check(fgap <= COEF_BAR and lane_gap <= 1,
                 f"fold 0: kernel within {COEF_BAR} of plain, niter within 1")
     del runs, args, kwargs
+
+
+def activeset_problem(n, p, m, seed=123):
+    """The JAX package's active-set benchmark problem
+    (benchmarks/wide_activeset_bench.py::problem): m normal slopes at
+    random columns, noise 0.1."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros(p)
+    b[rng.choice(p, m, replace=False)] = rng.normal(size=m)
+    X = rng.normal(size=(n, p))
+    y = X @ b + 0.1 * rng.normal(size=n)
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+@contextlib.contextmanager
+def activeset_threshold(lasso_mod, p):
+    """``_ACTIVESET_AUTO_P`` set to ``p`` for as long as the ``with``
+    lasts (past a problem's width: the scan row's dense engine)."""
+    saved = lasso_mod._ACTIVESET_AUTO_P
+    lasso_mod._ACTIVESET_AUTO_P = p
+    try:
+        yield
+    finally:
+        lasso_mod._ACTIVESET_AUTO_P = saved
+
+
+def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
+    """Phase 4c, "traces, active set and the first families": traced
+    ``lasso_path`` (scan and batch) and a traced LAD fit, the active-set
+    path's three modes at ``ACTIVESET_SIZES``, the
+    group lasso (tall and wide), the fused and zero-sum lasso, the relaxed
+    lasso, and the five new CV drivers at 2000 x 200 (10 folds; the
+    relaxed CV at 10000 x 1000).  Every call runs with the launch counts
+    at 0 just before it and read just after (they add to the kernels'
+    ``launches``), and is held against the port's float64 run on the
+    card at ``PATH_BAR``.  Times: the kernel paths' medians of 3 CUDA-event
+    timings after a warm-up; the engine-bound calls their first call on
+    the host clock; the relaxed lasso and its CV also stage by stage."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch import kernels
+    from admm_tpu_torch.kernels import tall_path, wide_path
+    from admm_tpu_torch.models import cv as cv_mod
+    from admm_tpu_torch.models import lasso as lasso_mod
+    from admm_tpu_torch.models import relaxed as relaxed_mod
+
+    print("phase: traces, active set and the first families", flush=True)
+    f64 = dict(dtype=torch.float64)
+    nfolds = 10
+
+    def to_np(v):
+        return v.detach().cpu().numpy().astype(np.float64)
+
+    def counted(label, call, want):
+        """``call()`` with the counts at 0 before and read after; ``want``
+        maps the kernels that must launch to their count (none other
+        may).  Returns (result, first call's ms on the host clock)."""
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        smoke.check(after == {**dict.fromkeys(after, 0), **want},
+                    f"{label}: launches {after} (want {want or 'none'})")
+        for name, launched in after.items():
+            record[name]["launches"] += launched
+        return out, ms
+
+    def gap_of(a, b):
+        return float(np.abs(to_np(a) - to_np(b)).max())
+
+    def held(label, out, ref, bar=PATH_BAR, what="float64"):
+        """Finite, the reference's shape, within ``bar`` of it."""
+        gap = gap_of(out.coef, ref.coef)
+        gap0 = gap_of(out.beta0, ref.beta0)
+        smoke.check(bool(torch.isfinite(out.coef).all())
+                    and out.coef.shape == ref.coef.shape,
+                    f"{label}: finite, shape {tuple(out.coef.shape)}")
+        smoke.check(gap <= bar and gap0 <= bar,
+                    f"{label}: within {bar} of {what} (coef gap {gap:.3e}, "
+                    f"beta0 gap {gap0:.3e})")
+        return gap
+
+    # -- Tracing: the engine, never a kernel. -----------------------------
+    # The traced path is the float32 engine; so is the untraced path with
+    # unit penalty factors (the factors multiply by 1.0 exactly), which
+    # it must equal to the bit.  The kernels accumulate in float64, so
+    # against them niter is held to the scan kernel's bar against its
+    # plain form (totals within max(3, 10%)) and the per-lambda gap shown.
+    n, p = X.shape
+    ones = np.ones(p)
+    for mode, kname in (("scan", "tall_path_scan"),
+                        ("batch", "tall_path_batch")):
+        label = (f"lasso_path(X, y, path_mode={mode!r}, trace_len=512)  "
+                 f"[{n} x {p} x 100, engine]")
+        traced, ms = counted(label, lambda: t.lasso_path(
+            X, y, path_mode=mode, trace_len=512), {})
+        engine, _ = counted(f"lasso_path(X, y, path_mode={mode!r}, "
+                            "penalty_factor=ones)  [engine, untraced]",
+                            lambda: t.lasso_path(X, y, path_mode=mode,
+                                                 penalty_factor=ones), {})
+        plain, _ = counted(f"lasso_path(X, y, path_mode={mode!r})",
+                           lambda: t.lasso_path(X, y, path_mode=mode),
+                           {kname: 1})
+        buf = to_np(traced.trace)
+        nit = to_np(traced.niter).astype(int)
+        nk = to_np(plain.niter).astype(int)
+        rows = (~np.isnan(buf[..., 0])).sum(axis=1)
+        print(f"  {label}: first call {ms:.1f} ms (host clock), trace "
+              f"{tuple(buf.shape)}, niter total {nit.sum()} (kernel "
+              f"{nk.sum()}), max niter gap to the kernel per lambda "
+              f"{int(np.abs(nit - nk).max())}, coef gap to the kernel "
+              f"{gap_of(traced.coef, plain.coef):.3e}")
+        smoke.check(traced.trace.shape == (100, 512, 5)
+                    and traced.trace.device.type == "cuda",
+                    f"{label}: a (100, 512, 5) trace on the card")
+        smoke.check(np.array_equal(rows, np.minimum(nit, 512)),
+                    f"{label}: recorded rows = min(niter, 512) per lambda")
+        smoke.check(torch.equal(traced.coef, engine.coef)
+                    and torch.equal(traced.niter, engine.niter),
+                    f"{label}: equals the untraced engine to the bit")
+        smoke.check(abs(int(nit.sum()) - int(nk.sum()))
+                    <= max(3, int(0.1 * nk.sum())),
+                    f"{label}: niter total within max(3, 10%) of the "
+                    "kernel's")
+        smoke.check(gap_of(traced.coef, plain.coef) <= PATH_BAR,
+                    f"{label}: within {PATH_BAR} of the kernel path")
+    label = f"admm_lad(Xl, yl).opts(trace=True).fit()  [{Xl.shape[0]} x " \
+            f"{Xl.shape[1]}, engine]"
+    lad_fit, ms = counted(label, lambda: t.admm_lad(Xl, yl).opts(
+        trace=True).fit(), {})
+    lad_ref = t.lad_fit(Xl, yl, dtype=torch.float64, eps_abs=EPS_L1,
+                        eps_rel=EPS_L1)
+    rows = int((~np.isnan(lad_fit.trace[:, 0])).sum())
+    lgap = float(np.abs(lad_fit.beta[1:] - to_np(lad_ref.coef)).max())
+    print(f"  {label}: first call {ms:.1f} ms (host clock), trace "
+          f"{lad_fit.trace.shape}, niter {lad_fit.niter}, {rows} rows, max "
+          f"|coef - f64| {lgap:.3e}")
+    smoke.check(lad_fit.trace.shape == (512, 5)
+                and rows == min(lad_fit.niter, 512),
+                f"{label}: recorded rows = min(niter, 512)")
+    smoke.check(lgap <= LAD_COEF_BAR, f"{label}: within {LAD_COEF_BAR} of "
+                "float64")
+    smoke.check("resid_primal" in lad_fit.format_trace(),
+                f"{label}: format_trace renders the table")
+
+    # -- The active set: three modes at two sizes. ------------------------
+    for na, pa, ma, ka in ACTIVESET_SIZES:
+        Xa, ya = activeset_problem(na, pa, ma)
+        size = f"{na} x {pa} x {ka}"
+        # The scan-mode dispatch: one iteration per lambda is enough to
+        # see which solver the default mode reaches.
+        calls = []
+        real = lasso_mod._solve_path_wide_activeset
+        lasso_mod._solve_path_wide_activeset = \
+            lambda *a, **k: calls.append(1) or real(*a, **k)
+        try:
+            t.lasso_path(Xa, ya, nlambda=ka, maxit=1)
+        finally:
+            lasso_mod._solve_path_wide_activeset = real
+        want_auto = pa >= lasso_mod._ACTIVESET_AUTO_P
+        smoke.check(bool(calls) == want_auto,
+                    f"{size}: scan mode takes the active set: "
+                    f"{bool(calls)} (p = {pa}, _ACTIVESET_AUTO_P = "
+                    f"{lasso_mod._ACTIVESET_AUTO_P})")
+        rows = {}
+
+        def mode_call(mode, **kw):
+            # The scan row is the dense engine: the threshold past p.
+            with (activeset_threshold(lasso_mod, pa + 1) if mode == "scan"
+                  else contextlib.nullcontext()):
+                return t.lasso_path(Xa, ya, nlambda=ka, path_mode=mode, **kw)
+
+        for mode in ("activeset", "scan", "batch"):
+            label = f"lasso_path(Xa, ya, path_mode={mode!r})  [{size}]"
+            kernel = mode == "batch" and wide_path.fits(na, pa)
+            out, ms = counted(label, lambda: mode_call(mode),
+                              {"wide_path_batch": 1} if kernel else {})
+            if kernel:
+                ms = cuda_median_ms(torch, lambda: mode_call(mode), reps=3)
+            gap = held(label, out, mode_call(mode, **f64))
+            rows[mode] = [out, [ms]]
+            print(f"  {label}: {ms:.1f} ms ("
+                  + ("wide kernel, median of 3, CUDA events" if kernel
+                     else "first call, host clock; "
+                     + ("batched engine" if mode == "batch" else "engine"))
+                  + f"), niter total {int(to_np(out.niter).sum())}, max "
+                  f"{int(to_np(out.niter).max())}, |coef - f64| {gap:.3e}")
+        # The scan-protocol choice, in turns on one card: activeset and
+        # scan again (A, S, S, A with the calls above), host clock.
+        for mode in ("scan", "activeset"):
+            t0 = time.perf_counter()
+            mode_call(mode)
+            torch.cuda.synchronize()
+            rows[mode][1].append((time.perf_counter() - t0) * 1e3)
+        # Two solvers stopped by the same relative test: their gap scales
+        # with the response (sd(y) 14 and 20 here), so it is held on the
+        # standardized scale, as the JAX package's benchmark reports it.
+        agap = gap_of(rows["activeset"][0].coef, rows["scan"][0].coef)
+        sd_y = float(np.std(ya.astype(np.float64)))
+        smoke.check(agap / sd_y <= PATH_BAR,
+                    f"{size}: activeset within {PATH_BAR} of the dense scan "
+                    f"on the standardized scale ({agap:.3e} / sd(y) "
+                    f"{sd_y:.3f} = {agap / sd_y:.3e})")
+        print(f"  active-set table {size}: " + ", ".join(
+            f"{m} " + " and ".join(f"{v:.1f}" for v in r[1]) + " ms"
+            for m, r in rows.items()))
+        del Xa, ya, rows, out
+        torch.cuda.empty_cache()
+
+    # -- The families on the flagship (and the wide group lasso). ---------
+    groups = np.arange(p) // 10
+    Ng, Pg = Xw.shape
+    family_calls = [
+        (f"group_lasso_path(X, y, groups of 10)  [{n} x {p} x 100, tall, "
+         "engine]", lambda **kw: t.group_lasso_path(X, y, groups, **kw)),
+        (f"group_lasso_path(Xw, yw, groups of 10)  [{Ng} x {Pg} x 100, wide, "
+         "engine]", lambda **kw: t.group_lasso_path(
+             Xw, yw, np.arange(Pg) // 10, **kw)),
+        (f"zerosum_lasso_path(X, y)  [{n} x {p} x 50, batch, engine]",
+         lambda **kw: t.zerosum_lasso_path(X, y, **kw)),
+    ]
+    for label, call in family_calls:
+        out, ms = counted(label, call, {})
+        ref = call(**f64)
+        gap = held(label, out, ref)
+        print(f"  {label}: first call {ms:.1f} ms (host clock), niter total "
+              f"{int(to_np(out.niter).sum())} max {int(to_np(out.niter).max())}"
+              f", |coef - f64| {gap:.3e}")
+        if "zerosum" in label:
+            # C b = d holds to solver tolerance (the support threshold drops
+            # x's O(eps) entries): as closely as in the float64 run.
+            csum = [float(np.abs(to_np(r.coef).sum(axis=1)).max())
+                    for r in (out, ref)]
+            print(f"  {label}: max |sum_j b_j| {csum[0]:.3e} (float64 "
+                  f"{csum[1]:.3e})")
+            smoke.check(csum[0] <= 1.5 * csum[1],
+                        f"{label}: sum_j b_j = 0 as closely as in float64")
+
+    # The fused lasso.  Its float32 path parts from its float64 path by
+    # far more than PATH_BAR here (8.8e-2), and does so in the JAX package
+    # too: tests/test_torch_genlasso.py holds the port's float32 error to
+    # the JAX package's.  So the float32 call (the default) is timed and
+    # its gap shown, and the gate holds the float64 path on the card
+    # against the same path on the host's CPU, both stopped at 2000
+    # iterations (the top lambdas run to maxit in both precisions).
+    label = f"fused_lasso_path(X, y)  [{n} x {p} x 50, batch, engine]"
+    out, ms = counted(label, lambda: t.fused_lasso_path(X, y), {})
+    ref, ms64 = counted(f"{label}, float64", lambda: t.fused_lasso_path(
+        X, y, **f64), {})
+    print(f"  {label}: first call {ms:.1f} ms (host clock; float64 "
+          f"{ms64:.1f} ms), niter total {int(to_np(out.niter).sum())} max "
+          f"{int(to_np(out.niter).max())} (float64 max "
+          f"{int(to_np(ref.niter).max())}), float32 |coef - f64| "
+          f"{gap_of(out.coef, ref.coef):.3e}")
+    smoke.check(bool(torch.isfinite(out.coef).all()),
+                f"{label}: float32 finite")
+    card = t.fused_lasso_path(X, y, maxit=2000, **f64)
+    t0 = time.perf_counter()
+    host = t.fused_lasso_path(X, y, maxit=2000, device="cpu", **f64)
+    print(f"  {label}, float64, maxit 2000: the host's CPU took "
+          f"{time.perf_counter() - t0:.1f} s")
+    held(f"{label}, float64, maxit 2000", card, host, bar=1e-8,
+         what="the same path on the CPU")
+
+    # -- The relaxed lasso: one tall scan launch, then the refits. --------
+    label = f"relaxed_lasso_path(X, y)  [{n} x {p} x 100, 5 gammas]"
+    rel, ms = counted(label, lambda: t.relaxed_lasso_path(X, y),
+                      {"tall_path_scan": 1})
+    rel_ref = t.relaxed_lasso_path(X, y, **f64)
+    lasso = t.lasso_path(X, y)
+    g1 = int(np.flatnonzero(to_np(rel.gammas) == 1.0)[0])
+    smoke.check(torch.equal(rel.coef[g1], lasso.coef)
+                and torch.equal(rel.beta0[g1], lasso.beta0),
+                f"{label}: gamma = 1 equals lasso_path to the bit")
+    gap = held(label, rel, rel_ref)
+    print(f"  {label}: first call {ms:.1f} ms (host clock), median of 3 "
+          f"{cuda_median_ms(torch, lambda: t.relaxed_lasso_path(X, y), reps=3):.3f}"
+          f" ms (CUDA events), |coef - f64| {gap:.3e} over the (5, 100, "
+          f"{p}) grid")
+    targets = [(relaxed_mod, "lasso_path", "lasso_path"),
+               (lasso_mod, "standardize", "standardize"),
+               (lasso_mod, "_tall_setup", "_tall_setup"),
+               (tall_path, "tall_path_scan", "tall_path_scan"),
+               (relaxed_mod, "_masked_refits", "_masked_refits"),
+               (relaxed_mod, "standardize", "standardize"),
+               (relaxed_mod, "gram", "X'X"),
+               (torch.linalg, "cholesky_ex", "batched cholesky_ex"),
+               (torch, "cholesky_solve", "cholesky_solve")]
+    title = f"relaxed_lasso_path {n} x {p} x 100, 5 gammas"
+
+    def staged(title, targets, call):
+        runs = []
+        for _ in range(4):
+            clock = StageClock(torch)
+            with clock.patch(targets):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                clock.ms["whole call"] = (time.perf_counter() - t0) * 1e3
+            runs.append(clock)
+        keys = list(runs[1].ms)
+        for k in keys:
+            med = statistics.median(r.ms.get(k, 0.0) for r in runs[1:])
+            print(f"  {title} | {k}: {med:.3f} ms "
+                  f"({runs[1].calls.get(k, 1)} calls)")
+
+    staged(title, targets, lambda: t.relaxed_lasso_path(X, y))
+
+    # -- The CV drivers. --------------------------------------------------
+    nd, pd = Xd.shape
+    gd = np.arange(pd) // 10
+    C2 = np.vstack([np.ones(pd), np.r_[1.0, -1.0, np.zeros(pd - 2)]])
+    cv_calls = [
+        (f"cv_group_lasso_path(Xd, yd, groups of 10)  [{nd} x {pd} x 100]",
+         lambda **kw: t.cv_group_lasso_path(Xd, yd, gd, nfolds=nfolds, **kw),
+         {}),
+        (f"cv_fused_lasso_path(Xd, yd)  [{nd} x {pd} x 50]",
+         lambda **kw: t.cv_fused_lasso_path(Xd, yd, nfolds=nfolds, **kw), {}),
+        (f"cv_gen_lasso_path(Xd, yd, D = 1st differences, weights)  [{nd} x "
+         f"{pd} x 50]",
+         lambda **kw: t.cv_gen_lasso_path(
+             Xd, yd, t.difference_matrix(pd, 1), nfolds=nfolds,
+             weights=np.random.default_rng(123).uniform(0.5, 1.5, nd), **kw),
+         {}),
+        (f"cv_zerosum_lasso_path(Xd, yd)  [{nd} x {pd} x 50]",
+         lambda **kw: t.cv_zerosum_lasso_path(Xd, yd, nfolds=nfolds, **kw),
+         {}),
+        (f"cv_constrained_lasso_path(Xd, yd, 2 rows)  [{nd} x {pd} x 50]",
+         lambda **kw: t.cv_constrained_lasso_path(
+             Xd, yd, C2, np.array([0.5, 0.0]), nfolds=nfolds, **kw), {}),
+        (f"cv_relaxed_lasso_path(X, y)  [{n} x {p} x 100, 5 gammas]",
+         lambda **kw: t.cv_relaxed_lasso_path(X, y, nfolds=nfolds, **kw),
+         {"tall_path_scan": 1, "tall_path_batch": nfolds}),
+    ]
+
+    def idx(lams, lam):
+        return int(np.argmin(np.abs(np.asarray(lams) - lam)))
+
+    for label, call, want in cv_calls:
+        out, ms = counted(label, call, want)
+        ref = call(**f64)
+        relaxed = isinstance(out, dict)
+        get = (lambda r, k: r[k]) if relaxed else getattr
+        fit, fit_ref = get(out, "fit"), get(ref, "fit")
+        # The generalized lasso's float32 path is the JAX package's,
+        # 1.2e-3 from float64 at this size: its bar is that package's own
+        # for the family (2e-3, tests/test_genlasso.py), for the full fit
+        # and the CV curve.
+        bar, cv_bar = ((2e-3, 2e-3) if "fused" in label or "gen" in label
+                       else (PATH_BAR, 1e-4))
+        held(f"{label} full fit", fit, fit_ref, bar=bar)
+        cvm, cvm_ref = get(out, "cvm"), get(ref, "cvm")
+        rel = float(np.max(np.abs(cvm - cvm_ref) / np.abs(cvm_ref)))
+        i, j = (idx(get(r, "lambdas"), get(r, "lambda_min"))
+                for r in (out, ref))
+        cvm_at = lambda r, k: (r["cvm"].min(axis=0)[k] if relaxed
+                               else r.cvm[k])
+        tie = abs(cvm_at(ref, i) - cvm_at(ref, j)) <= 1e-5 * abs(
+            cvm_at(ref, j))
+        print(f"  {label}: first call {ms:.1f} ms (host clock), cvm "
+              f"{cvm.shape} max rel gap to f64 {rel:.3e}, lambda_min index "
+              f"{i} (f64 {j})"
+              + (f", gamma_min {out['gamma_min']} (f64 {ref['gamma_min']})"
+                 if relaxed else ""))
+        smoke.check(np.isfinite(cvm).all() and cvm.shape == cvm_ref.shape,
+                    f"{label}: finite curves")
+        smoke.check(rel <= cv_bar,
+                    f"{label}: cvm within rtol {cv_bar} of float64")
+        smoke.check(i == j or tie, f"{label}: lambda_min at float64's grid "
+                    "point, or a tie of cvm within rtol 1e-5")
+        if not relaxed:
+            eta = t.predict(out, Xd[:4], lam="lambda.min")
+            smoke.check(eta.shape == (4,) and np.isfinite(eta).all(),
+                        f"{label}: predict(cv, X, lam='lambda.min') runs")
+    title = f"cv_relaxed_lasso_path {n} x {p} x 100, {nfolds} folds"
+    staged(title, [(relaxed_mod, "relaxed_lasso_path", "full fit"),
+                   (cv_mod, "_fold_sweep", "fold sweep"),
+                   (lasso_mod, "_tall_setup", "_tall_setup"),
+                   (tall_path, "tall_path_scan", "tall_path_scan"),
+                   (tall_path, "tall_path_batch", "tall_path_batch"),
+                   (relaxed_mod, "_masked_refits", "_masked_refits")],
+           lambda: t.cv_relaxed_lasso_path(X, y, nfolds=nfolds))
 
 
 def main() -> int:
@@ -942,6 +1329,9 @@ def main() -> int:
 
     # 4b. Cross-validation, the Lasso's options and prediction.
     cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg["logistic"], kg, f32)
+
+    # 4c. Traces, the active set and the first families.
+    families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl)
 
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "

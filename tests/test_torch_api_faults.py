@@ -96,10 +96,17 @@ def test_builder_takes_activeset_and_fit_raises_on_tall_data(tall, pkg):
 
 def test_activeset_on_wide_data_is_not_ported(wide):
     """With no refused option the mode reaches the active-set solver,
-    which the port does not have yet."""
+    which the port now has: the path and the builder's fit run it and
+    agree with the JAX package's (full parity:
+    ``tests/test_torch_activeset.py``)."""
     X, y = wide
-    with pytest.raises(NotImplementedError, match="not ported"):
-        admm_tpu_torch.lasso_path(X, y, path_mode="activeset", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        admm_tpu_torch.admm_lasso(X, y, device="cpu").opts(
-            path_mode="activeset").fit()
+    kw = dict(nlambda=4, rho=1.0)
+    ref = admm_tpu.lasso_path(X, y, path_mode="activeset", **kw)
+    got = admm_tpu_torch.lasso_path(X, y, path_mode="activeset",
+                                    device="cpu", **kw)
+    np.testing.assert_allclose(got.coef.numpy(), np.asarray(ref.coef),
+                               atol=1e-5)
+    fit = admm_tpu_torch.admm_lasso(X, y, device="cpu").penalty(
+        nlambda=4).opts(path_mode="activeset", rho=1.0).fit()
+    np.testing.assert_allclose(fit.beta.toarray()[1:].T, got.coef.numpy(),
+                               atol=1e-6)

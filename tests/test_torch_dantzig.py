@@ -184,6 +184,8 @@ def test_dantzig_builder_validates_like_reference(tall, case):
     "builder_limits", "fit_plot",
 ])
 def test_dantzig_options_not_ported_raise(tall, option):
+    """What is not ported raises by name; the traced path is ported and
+    must record one trace per lambda."""
     X, y = tall
     t = admm_tpu_torch
     builder = t.admm_dantzig(X, y, device="cpu")
@@ -191,7 +193,8 @@ def test_dantzig_options_not_ported_raise(tall, option):
         "trace_len": lambda: t.dantzig_path(X, y, trace_len=8, device="cpu"),
         "data_mesh": lambda: t.dantzig_path(X, y, data_mesh=object(),
                                             device="cpu"),
-        "builder_trace": lambda: builder.opts(trace=True),
+        "builder_trace": lambda: builder.penalty(nlambda=2).opts(
+            trace=8).fit(),
         # The builder takes glmnet's options since the Lasso ports them;
         # its fit refuses them with the reference's own error.
         "builder_penalty_factor": lambda: builder.penalty(
@@ -200,6 +203,11 @@ def test_dantzig_options_not_ported_raise(tall, option):
         "fit_plot": lambda: builder.penalty(nlambda=2).opts(
             maxit=5).fit().plot(),
     }
+    if "trace" in option:
+        res = calls[option]()
+        assert res.trace.shape[1:] == (8, 5)
+        assert np.isfinite(np.asarray(res.trace)[:, 0]).any()
+        return
     match = ("not supported for the Dantzig selector"
              if option.startswith("builder_") and option != "builder_trace"
              else "not ported")

@@ -406,7 +406,8 @@ ERRORS = {
     "dfmax_zero": (dict(dfmax=0, lambda_min_ratio=0.5, nlambda=3,
                         penalty_factor=np.r_[0.0, np.ones(P - 1)]),
                    ValueError, "dfmax/pmax exclude even the largest-lambda"),
-    "trace_len": (dict(trace_len=10), NotImplementedError, "trace_len"),
+    # Ported: a traced path runs (and forces "scan"), raising nothing.
+    "trace_len": (dict(trace_len=10, nlambda=3), None, None),
     "data_mesh": (dict(data_mesh=object()), NotImplementedError, "data_mesh"),
 }
 
@@ -414,6 +415,11 @@ ERRORS = {
 @pytest.mark.parametrize("label", list(ERRORS))
 def test_validation_errors(data, label):
     kw, exc, match = ERRORS[label]
+    if exc is None:
+        res = admm_tpu_torch.logistic_lasso_path(
+            data[0], _y(data, "binomial"), device="cpu", **kw)
+        assert res.trace.shape == (3, kw["trace_len"], 5)
+        return
     with pytest.raises(exc, match=match):
         admm_tpu_torch.logistic_lasso_path(data[0], _y(data, "binomial"),
                                            device="cpu", **kw)

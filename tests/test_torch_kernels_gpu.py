@@ -915,3 +915,84 @@ def test_prediction_on_the_card_matches_the_host(dev):
     got, want = (t.path_table(r, X, y, family=t.binomial) for r in (fit, host))
     np.testing.assert_array_equal(got.df, want.df)
     close(got.dev_ratio, want.dev_ratio)
+
+
+def test_traced_path_on_the_card_launches_nothing(dev):
+    """A traced ``lasso_path`` runs the engine, never a kernel, and its
+    trace equals the CPU engine's to 1e-5 (relative to each trace
+    column's largest entry; the products add in another order)."""
+    import admm_tpu_torch as t
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(200, 40))
+    y = X[:, :5] @ np.ones(5) + 0.3 * rng.normal(size=200)
+    for mode in ("scan", "batch"):
+        kw = dict(nlambda=8, trace_len=64, path_mode=mode, rho=20.0,
+                  dtype=torch.float64)
+        kernels.reset_launch_counts()
+        card = t.lasso_path(X, y, device=dev, **kw)
+        assert not any(kernels.launch_counts().values())
+        host = t.lasso_path(X, y, device="cpu", **kw)
+        a, b = card.trace.cpu().numpy(), host.trace.numpy()
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        scale = np.nanmax(np.abs(b), axis=1, keepdims=True)
+        assert np.nanmax(np.abs(a - b) / scale) <= 1e-5
+        assert torch.equal(card.niter.cpu(), host.niter)
+
+
+def test_relaxed_path_runs_the_scan_kernel_as_its_plain_form(dev):
+    """``relaxed_lasso_path`` reaches the tall scan kernel once; on the
+    inputs it gave the kernel, the kernel equals its plain form (gap 0,
+    identical niter)."""
+    import admm_tpu_torch as t
+
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(300, 30))
+    y = X[:, :4] @ np.r_[1.5, -1.0, 0.8, 0.5] + rng.normal(size=300)
+    seen = []
+    real = tall_path.tall_path_scan
+
+    def keep(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+    kernels.reset_launch_counts()
+    tall_path.tall_path_scan = keep
+    try:
+        res = t.relaxed_lasso_path(X, y, nlambda=20, device=dev)
+    finally:
+        tall_path.tall_path_scan = real
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "tall_path_scan": 1}
+    (a, k), = seen
+    zk, nk = tall_path.tall_path_scan(*a, **k)
+    zp, np_ = tall_path.tall_path_scan_reference(*a, **k)
+    assert float((zk - zp).abs().max()) == 0.0 and torch.equal(nk, np_)
+    assert torch.isfinite(res.coef).all()
+
+
+def test_activeset_gives_the_same_bits_twice(dev):
+    """The active-set path on the card, run twice on the same inputs (a
+    support capped below p, so the refresh ranks ties): identical bits
+    and niter."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.models import lasso as lasso_mod
+
+    rng = np.random.default_rng(10)
+    X = rng.normal(size=(100, 600))
+    b = np.zeros(600)
+    b[:8] = rng.uniform(1.0, 2.0, 8)
+    y = X @ b + 0.5 * rng.normal(size=100)
+    kernels.reset_launch_counts()
+    runs = [t.lasso_path(X, y, nlambda=10, path_mode="activeset",
+                         device=dev) for _ in range(2)]
+    assert not any(kernels.launch_counts().values())
+    assert torch.equal(runs[0].coef, runs[1].coef)
+    assert torch.equal(runs[0].niter, runs[1].niter)
+    Xs, ys = _std(X, y, dev)
+    lams = torch.tensor(np.geomspace(1.0, 0.05, 6), dtype=torch.float32,
+                        device=dev) * float(torch.max(torch.abs(Xs.mT @ ys)))
+    capped = [lasso_mod._solve_path_wide_activeset(
+        Xs, ys, lams, 1.0, MAXIT, 1e-5, 1e-5, 1.0, False, s_max=20)
+        for _ in range(2)]
+    assert torch.equal(capped[0][0], capped[1][0])
+    assert torch.equal(capped[0][1], capped[1][1])

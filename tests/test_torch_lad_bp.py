@@ -307,6 +307,9 @@ def test_builders_validate_like_reference(lad_data, bp_data, case):
     "lad_builder_trace", "lad_fit_plot",
 ])
 def test_options_not_ported_raise(lad_data, bp_data, option):
+    """``data_mesh``, ``parallel`` and ``plot`` raise by name; the traced
+    solves are ported and must record a trace (their parity with the JAX
+    package is ``tests/test_torch_trace.py``)."""
     X, y = lad_data
     A, B, _ = bp_data
     t = admm_tpu_torch
@@ -320,15 +323,26 @@ def test_options_not_ported_raise(lad_data, bp_data, option):
             X, y, tau=0.3, data_mesh=object(), **cpu),
         "bp_trace_len": lambda: t.bp_fit(A, B[0], trace_len=8, **cpu),
         "bp_data_mesh": lambda: t.bp_fit(A, B[0], data_mesh=object(), **cpu),
-        "bp_builder_trace": lambda: t.admm_bp(A, B[0]).opts(trace=True),
-        "bp_builder_trace_int": lambda: t.admm_bp(A, B[0]).opts(trace=16),
+        "bp_builder_trace": lambda: t.admm_bp(A, B[0], **cpu).opts(
+            trace=True).fit(),
+        "bp_builder_trace_int": lambda: t.admm_bp(A, B[0], **cpu).opts(
+            trace=16).fit(),
         "bp_builder_parallel": lambda: t.admm_bp(A, B[0]).parallel(nthread=2),
         "bp_fit_plot": lambda: t.admm_bp(A, B[0], **cpu).opts(
             maxit=5).fit().plot(),
-        "lad_builder_trace": lambda: t.admm_lad(X, y).opts(trace=True),
+        "lad_builder_trace": lambda: t.admm_lad(X, y, **cpu).opts(
+            trace=True).fit(),
         "lad_fit_plot": lambda: t.admm_lad(X, y, **cpu).opts(
             maxit=5).fit().plot(),
     }
+    if "trace" in option:
+        res = calls[option]()
+        rows = {"bp_builder_trace_int": 16}.get(
+            option, 8 if option.endswith("trace_len") else 512)
+        assert res.trace.shape == (rows, 5)
+        nrec = int((~np.isnan(np.asarray(res.trace[:, 0]))).sum())
+        assert nrec == min(int(res.niter), rows)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[option]()
 

@@ -163,10 +163,12 @@ def test_tensor_input_stays_on_its_device(tall):
     "adaptive_lasso_path", "builder_penalty_factor", "builder_limits",
     "builder_parallel", "builder_trace", "builder_activeset", "fit_plot",
 ])
-def test_options_not_ported_raise(tall, wide, option):
+def test_options_not_ported_raise(tall, wide, option, monkeypatch):
     """What is not ported raises by name; glmnet's per-coordinate options,
-    dfmax/pmax and the adaptive lasso are ported now and must run
-    (their parity is ``tests/test_torch_lasso_options.py``)."""
+    dfmax/pmax, the adaptive lasso, the traced solves and the active set
+    are ported now and must run (their parity is
+    ``tests/test_torch_lasso_options.py``, ``test_torch_trace.py`` and
+    ``test_torch_activeset.py``)."""
     X, y = tall
     ones = np.ones(X.shape[1])
     path = lambda **kw: admm_tpu_torch.lasso_path(X, y, device="cpu", **kw)
@@ -185,8 +187,10 @@ def test_options_not_ported_raise(tall, wide, option):
         "data_mesh": lambda: path(data_mesh=object()),
         "activeset": lambda: admm_tpu_torch.lasso_path(
             Xw, yw, path_mode="activeset", device="cpu"),
+        # The scan-mode auto-dispatch, at a threshold this wide problem
+        # reaches (the real one is 20000 columns).
         "activeset_auto": lambda: admm_tpu_torch.lasso_path(
-            np.zeros((2, 20000)), np.zeros(2), device="cpu"),
+            Xw, yw, nlambda=5, device="cpu"),
         "adaptive_lasso_path": lambda: admm_tpu_torch.adaptive_lasso_path(
             X, y, nlambda=5, device="cpu"),
         "builder_penalty_factor": lambda: builder.penalty(
@@ -199,10 +203,14 @@ def test_options_not_ported_raise(tall, wide, option):
             Xw, yw, device="cpu").opts(path_mode="activeset").fit(),
         "fit_plot": lambda: builder.penalty(nlambda=3).fit().plot(),
     }
+    from admm_tpu_torch.models import lasso as lasso_mod
+
+    monkeypatch.setattr(lasso_mod, "_ACTIVESET_AUTO_P", Xw.shape[1])
     if option in _PORTED_OPTIONS:
         res = calls[option]()
         if isinstance(res, admm_tpu_torch.ADMMLasso):
             res = res.fit()
+        if isinstance(res, admm_tpu_torch.ADMMLassoFit):
             coef = res.beta.toarray()
         else:
             coef = res.coef.numpy()
@@ -214,7 +222,9 @@ def test_options_not_ported_raise(tall, wide, option):
 
 _PORTED_OPTIONS = {"penalty_factor", "lower_limits", "upper_limits",
                    "exclude", "dfmax", "pmax", "adaptive_lasso_path",
-                   "builder_penalty_factor", "builder_limits"}
+                   "builder_penalty_factor", "builder_limits", "trace_len",
+                   "activeset", "activeset_auto", "builder_trace",
+                   "builder_activeset"}
 
 
 def test_builder_validates_like_reference(tall):
