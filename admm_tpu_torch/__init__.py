@@ -8,9 +8,10 @@ paths (logistic, Huber, Poisson and the family objects), with glmnet's
 per-coordinate options (penalty factors, coefficient limits, ``exclude``,
 ``dfmax``/``pmax``), the adaptive lasso, the wide active-set path, the
 (sparse-)group, generalized/fused, constrained/zero-sum and relaxed
-lasso, k-fold cross-validation of all of these, per-iteration residual
-traces (``trace_len``, ``.opts(trace=...)``, :mod:`admm_tpu_torch.diag`),
-and ``predict``/``coef``, the path summary and
+lasso, the square-root, quantile, SLOPE, SVM, multi-task and
+multinomial paths, k-fold cross-validation of all of these,
+per-iteration residual traces (``trace_len``, ``.opts(trace=...)``,
+:mod:`admm_tpu_torch.diag`), and ``predict``/``coef``, the path summary and
 ``assess``/``roc``/``confusion``/``c_index``.  All six of the
 JAX package's Pallas TPU kernels are hand-written CUDA kernels here
 (``csrc/``, built with ``nvcc`` at first use)::
@@ -44,6 +45,8 @@ from .models.cv import (CVResult, cv_constrained_lasso_path,
                         cv_dantzig_path, cv_enet_path, cv_fused_lasso_path,
                         cv_gen_lasso_path, cv_glm_path, cv_group_lasso_path,
                         cv_lasso_path, cv_logistic_path,
+                        cv_multinomial_path, cv_multitask_lasso_path,
+                        cv_slope_path, cv_sqrt_lasso_path,
                         cv_zerosum_lasso_path)
 from .models.dantzig import dantzig_path
 from .models.genlasso import (difference_matrix, difference_matrix_2d,
@@ -57,8 +60,17 @@ from .models.lad import LADResult, lad_fit, quantile_fit
 from .models.lasso import (PathResult, adaptive_lasso_path, enet_path,
                            lasso_path)
 from .models.logistic import logistic_lasso_path
+from .models.multinomial import MNPathResult, multinomial_lasso_path
+from .models.multitask import (MTPathResult, multitask_lasso_path,
+                               multitask_nuclear_path)
+from .models.quantile import (QuantilePathResult, cv_quantile_lasso_path,
+                              pinball_loss, quantile_lasso_path)
 from .models.relaxed import (RelaxedPathResult, cv_relaxed_lasso_path,
                              relaxed_lasso_path)
+from .models.slope import bh_sequence, slope_path
+from .models.sqrtlasso import sqrt_lasso_path
+from .models.svm import (CVSVMResult, SVMResult, cv_svm_path, svm_fit,
+                         svm_path)
 from .predict import coef, predict
 from .summary import PathTable, deviance, format_path_table, path_table
 
@@ -80,6 +92,13 @@ __all__ = [
     "constrained_lasso_path", "zerosum_lasso_path",
     "cv_constrained_lasso_path", "cv_zerosum_lasso_path",
     "relaxed_lasso_path", "cv_relaxed_lasso_path", "RelaxedPathResult",
+    "sqrt_lasso_path", "cv_sqrt_lasso_path", "quantile_lasso_path",
+    "cv_quantile_lasso_path", "pinball_loss", "slope_path", "bh_sequence",
+    "cv_slope_path", "svm_path", "svm_fit", "cv_svm_path",
+    "multitask_lasso_path", "multitask_nuclear_path",
+    "cv_multitask_lasso_path", "multinomial_lasso_path",
+    "cv_multinomial_path", "QuantilePathResult", "SVMResult", "CVSVMResult",
+    "MTPathResult", "MNPathResult",
     "predict", "coef", "path_table",
     "format_path_table", "deviance", "assess", "roc", "confusion",
     "c_index", "PathResult", "LADResult", "BPResult", "CVResult",

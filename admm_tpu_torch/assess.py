@@ -2,7 +2,8 @@
 ``roc.glmnet``, ``confusion.glmnet`` and ``Cindex`` (counterpart of
 ``admm_tpu/assess.py``).
 
-Runs on finished gaussian and GLM ``PathResult``s and on CV results, in
+Runs on finished gaussian and GLM ``PathResult``s, multinomial and
+multi-task results and on CV results, in
 float64 on the device of the fit's coefficients (of ``eta=`` where that
 is given instead), and returns numpy, as the JAX package does; the
 measures are those the CV drivers score
@@ -70,16 +71,28 @@ def assess(result, X, y, *, family: str = "gaussian",
     * a :class:`GLMFamily`: its ``cv_loss`` as the deviance, ``mse``/
       ``mae`` through its ``mean_eta``, ``class``/``auc`` for binomial
       links
+    * a multinomial result: ``deviance`` (-2 log p_y), ``class``,
+      ``mse``/``mae`` over the probability simplex
+    * a multi-task result (``y`` (m, K)): ``deviance`` = ``mse``, the
+      squared error summed over tasks, and ``mae``, as the multi-task CV
+      scores them
 
     ``eta=`` scores a given (nlambda, n) predictor matrix instead.  A CV
     result assesses its full-data fit at ``lam="lambda.1se"`` by default.
     ``time``/``event``/``strata``/``start`` belong to cox results, which
     are not ported yet.
     """
+    from .models.multinomial import MNPathResult
+    from .models.multitask import MTPathResult
+    from .models.svm import SVMResult
+
     if any(a is not None for a in (time, event, strata, start)):
         raise NotImplementedError(
             "cox assessment is not ported to admm_tpu_torch yet")
     result, lam = _resolve_cv(result, lam)
+    if isinstance(result, SVMResult):
+        raise TypeError("assess takes no SVMResult: score "
+                        "predict(fit, X, type='class') against the labels")
     etam = _eta_matrix(result, X, eta, offset)
     device = etam.device
     w = None if weights is None else _f64(weights, device).ravel()
@@ -90,10 +103,34 @@ def assess(result, X, y, *, family: str = "gaussian",
             return per_obs.mean(dim=-1)
         return (per_obs * w).sum(dim=-1) / w.sum()
 
-    y = _f64(y, device).ravel()
-    yr = y[None, :]
+    y = _f64(y, device)
+    if etam.dim() == 2:
+        y = y.ravel()
+    yr = y[None]
     fam_obj = None if isinstance(family, str) else _family_object(family)
-    if fam_obj is not None:
+    if isinstance(result, MNPathResult):
+        # Multinomial deviance -2 log p_y, argmax class error, and the
+        # Brier-style mse/mae over the probability simplex.
+        yi = y.ravel().to(torch.int64)
+        logp = torch.log_softmax(etam, dim=2)
+        logp_y = torch.gather(
+            logp, 2, yi[None, :, None].expand(etam.shape[0], -1, 1))[..., 0]
+        P = torch.softmax(etam, dim=2)
+        Y1 = torch.nn.functional.one_hot(yi, etam.shape[2]).to(etam.dtype)
+        out = {"deviance": agg(-2.0 * logp_y),
+               "class": agg((torch.argmax(etam, dim=2) != yi[None, :])
+                            .to(etam.dtype)),
+               "mse": agg(((P - Y1[None]) ** 2).sum(dim=2)),
+               "mae": agg(torch.abs(P - Y1[None]).sum(dim=2))}
+    elif isinstance(result, MTPathResult):
+        # The error summed over tasks, per observation: what
+        # cv_multitask_lasso_path scores (the JAX package's assess leaves
+        # the task axis in place and returns per-observation arrays).
+        r = etam - yr
+        out = {"deviance": agg((r * r).sum(dim=2)),
+               "mse": agg((r * r).sum(dim=2)),
+               "mae": agg(torch.abs(r).sum(dim=2))}
+    elif fam_obj is not None:
         mu = (etam if fam_obj.mean_eta is None
               else fam_obj.mean_eta(etam))
         out = {"deviance": agg(fam_obj.cv_loss(etam, y)),
@@ -188,17 +225,21 @@ def roc(result, X, y, *, lam: Optional[float] = None, eta=None):
 
 
 def confusion(result, X, y, *, lam: Optional[float] = None):
-    """True-by-predicted class counts of a binomial fit at one path point
-    (glmnet's ``confusion.glmnet``): a (2, 2) array, rows the true class,
-    columns the predicted one.  ``lam`` defaults to the smallest grid
+    """True-by-predicted class counts at one path point (glmnet's
+    ``confusion.glmnet``): a (C, C) array, rows the true class, columns the
+    predicted one; binomial fits predict at a mean of 1/2, multinomial
+    fits the softmax argmax.  ``lam`` defaults to the smallest grid
     point."""
+    from .models.multinomial import MNPathResult
+
     if lam is None:
         lam = float(np.asarray(to_numpy(result.lambdas))[-1])
     pred = _predict(result, X, lam, "class", "binomial", None,
                     None).ravel()
+    C = result.beta0.shape[-1] if isinstance(result, MNPathResult) else 2
     yi = _f64(y, pred.device).to(torch.int64).ravel()
-    return to_numpy(torch.bincount(2 * yi + pred, minlength=4)
-                    .reshape(2, 2))
+    return to_numpy(torch.bincount(C * yi + pred, minlength=C * C)
+                    .reshape(C, C))
 
 
 def c_index(eta, time, event, weights=None):

@@ -4,7 +4,8 @@ the port.
 The system has no weights: what crosses between ``admm_tpu`` and
 ``admm_tpu_torch`` is solver state (``ADMMState``), standardization
 statistics (``StdStats``) and results (``PathResult``, ``LADResult``,
-``BPResult``), plus plain
+``BPResult``, ``QuantilePathResult``, ``SVMResult``, ``MTPathResult``,
+``MNPathResult``), plus plain
 arrays such as a ridge inverse, X'y, rho, sprad or a lambda grid.  The
 two packages' types are ``NamedTuple``s with the same names and fields;
 numpy arrays are the medium.  This module never imports JAX: the
@@ -25,6 +26,22 @@ from .models.lasso import PathResult
 
 _PORT_TYPES = {cls.__name__: cls for cls in (ADMMState, StdStats, PathResult,
                                              LADResult, BPResult)}
+# Fields that hold host metadata, not arrays: carried across unchanged.
+_HOST_FIELDS = ("classes",)
+
+
+def _port_types():
+    """The port's types by name; the model modules that import this one
+    are added at first use."""
+    if "SVMResult" not in _PORT_TYPES:
+        from .models.multinomial import MNPathResult
+        from .models.multitask import MTPathResult
+        from .models.quantile import QuantilePathResult
+        from .models.svm import SVMResult
+
+        _PORT_TYPES.update({cls.__name__: cls for cls in (
+            QuantilePathResult, SVMResult, MTPathResult, MNPathResult)})
+    return _PORT_TYPES
 
 
 def to_torch(a, *, device=None, dtype: Optional[torch.dtype] = None):
@@ -50,18 +67,21 @@ def from_reference(obj, *, device=None, dtype: Optional[torch.dtype] = None):
     """A JAX-package ``ADMMState``, ``StdStats`` or result tuple as the
     port's type of the same name.  ``dtype`` casts floating fields only."""
     name = type(obj).__name__
-    if name not in _PORT_TYPES:
+    types = _port_types()
+    if name not in types:
         raise TypeError(f"no port type for {name}")
-    cls = _PORT_TYPES[name]
+    cls = types[name]
     if tuple(obj._fields) != tuple(cls._fields):
         raise TypeError(f"{name} fields differ: {obj._fields} vs {cls._fields}")
 
-    def conv(v):
+    def conv(field, v):
+        if field in _HOST_FIELDS:
+            return v
         t = to_torch(v, device=device)
         if t is not None and dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t
-    return cls(*(conv(v) for v in obj))
+    return cls(*(conv(f, v) for f, v in zip(obj._fields, obj)))
 
 
 def to_reference(obj, cls):
@@ -72,7 +92,8 @@ def to_reference(obj, cls):
             cls._fields):
         raise TypeError(f"cannot convert {type(obj).__name__} to "
                         f"{cls.__name__}")
-    return cls(*(to_numpy(v) for v in obj))
+    return cls(*(v if f in _HOST_FIELDS else to_numpy(v)
+                 for f, v in zip(obj._fields, obj)))
 
 
 __all__ = ["from_reference", "to_numpy", "to_reference", "to_torch"]

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..interop import to_numpy
-from .lasso import PathResult, _as_tensor, _not_ported, lasso_path
+from .lasso import (PathResult, _as_tensor, _not_ported, lasso_path,
+                    validate_pf_limits)
 
 
 class CVResult(NamedTuple):
@@ -167,14 +168,16 @@ def _fold_auc(eta_all, y, foldid, nfolds, w=None):
     return cvraw, fold_w
 
 
-def _fold_sweep(X, masks, fid, solve_fold):
+def _fold_sweep(X, masks, fid, solve_fold, eta_of=None):
     """The one-pass fold sweep: fold f's path is ``solve_fold(mask_f)``
     (the weighted path, weight 0 on fold f's rows); each row keeps the
-    (nlambda,) linear predictor of the fold that held it out (``fid``, a
-    numpy array, is the clipped foldid, so a train-only row takes fold
-    0's).  Returns the (n, nlambda) predictors on X's device.  The rows of
-    every fold go to the device once, before the first solve; one fold's
-    standardized design is alive at a time."""
+    linear predictors of the fold that held it out (``fid``, a numpy
+    array, is the clipped foldid, so a train-only row takes fold 0's).
+    ``eta_of(res, X_rows)`` forms a fold's ``(n_f, ...)`` predictors; by
+    default a path's ``beta0 + X coef'``, (n_f, nlambda).  Returns the (n,
+    ...) predictors on X's device.  The rows of every fold go to the device
+    once, before the first solve; one fold's standardized design is alive
+    at a time."""
     n = X.shape[0]
     order = np.argsort(fid, kind="stable")
     edges = np.searchsorted(fid[order], np.arange(masks.shape[0] + 1))
@@ -183,10 +186,12 @@ def _fold_sweep(X, masks, fid, solve_fold):
     for f in range(masks.shape[0]):
         res = solve_fold(masks[f])
         rows = order[int(edges[f]):int(edges[f + 1])]
+        part = (res.beta0[None, :] + X[rows] @ res.coef.mT if eta_of is None
+                else eta_of(res, X[rows]))
         if eta is None:
-            eta = torch.empty((n, res.coef.shape[0]), dtype=res.coef.dtype,
+            eta = torch.empty((n,) + tuple(part.shape[1:]), dtype=part.dtype,
                               device=X.device)
-        eta[rows] = res.beta0[None, :] + X[rows] @ res.coef.mT
+        eta[rows] = part
         del res
     return eta
 
@@ -696,3 +701,292 @@ def cv_zerosum_lasso_path(X, y, **kw) -> CVResult:
     """Cross-validated zero-sum lasso (the one-row constrained case)."""
     p = X.shape[1] if hasattr(X, "shape") else np.shape(X)[1]
     return cv_constrained_lasso_path(X, y, np.ones((1, p)), **kw)
+
+
+def cv_slope_path(X, y, *, lam_seq=None, q: float = 0.1, nlambda: int = 30,
+                  lambda_min_ratio: float = 1e-2, standardize: bool = True,
+                  intercept: bool = True, maxit: int = 10000,
+                  eps_abs: float = 1e-5, eps_rel: float = 1e-5,
+                  rho: float = -1.0, device="cuda", **kw) -> CVResult:
+    """Cross-validated SLOPE path over the sequence scale t: the sorted-l1
+    sequence (BH at level ``q`` by default) is fixed and the CV selects its
+    multiplier, t in glmnet's lambda role (same fold protocol as
+    :func:`cv_lasso_path`, each fold the weighted batch path on the
+    engine), plus ``device``."""
+    from .slope import _check_lam_seq, _slope_path_dev, slope_path
+
+    p = X.shape[1] if hasattr(X, "shape") else np.shape(X)[1]
+    lam_np = _check_lam_seq(lam_seq, q, p)
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return slope_path(Xf, yf, lam_seq=lam_np, lambdas=lambdas,
+                          nlambda=nlambda, lambda_min_ratio=lambda_min_ratio,
+                          standardize=standardize, intercept=intercept,
+                          weights=wf, maxit=maxit, eps_abs=eps_abs,
+                          eps_rel=eps_rel, rho=rho, dtype=dtype,
+                          device=device)
+
+    def fold_eta(Xf, yf, lams, masks, fid):
+        lam_t = torch.as_tensor(lam_np, dtype=Xf.dtype, device=Xf.device)
+        return _fold_sweep(Xf, masks, fid, lambda mask: _slope_path_dev(
+            Xf, yf, lam_t, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
+            standardize_x=standardize, intercept=intercept,
+            path_mode="batch"))
+
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         standardize=standardize, intercept=intercept,
+                         _path_fn=path_fn, _fold_eta_fn=fold_eta,
+                         device=device, **kw)
+
+
+def cv_sqrt_lasso_path(X, y, *, nlambda: int = 30,
+                       lambda_min_ratio: float = 1e-2,
+                       standardize: bool = True, intercept: bool = True,
+                       maxit: int = 10000, eps_abs: float = 1e-6,
+                       eps_rel: float = 1e-6, rho: float = -1.0,
+                       device="cuda", **kw) -> CVResult:
+    """Cross-validated square-root-lasso path, scored by held-out MSE with
+    the glmnet fold protocol (each fold the weighted concomitant batch path:
+    weight-0 rows drop out of the weighted l2-norm loss exactly), plus
+    ``device``."""
+    from .sqrtlasso import _sqrt_path_dev, sqrt_lasso_path
+
+    dtype = kw.get("dtype") or torch.float32
+
+    def path_fn(Xf, yf, lambdas, wf=None):
+        return sqrt_lasso_path(Xf, yf, lambdas=lambdas, nlambda=nlambda,
+                               lambda_min_ratio=lambda_min_ratio,
+                               standardize=standardize, intercept=intercept,
+                               weights=wf, maxit=maxit, eps_abs=eps_abs,
+                               eps_rel=eps_rel, rho=rho, dtype=dtype,
+                               device=device)
+
+    def fold_eta(Xf, yf, lams, masks, fid):
+        return _fold_sweep(Xf, masks, fid, lambda mask: _sqrt_path_dev(
+            Xf, yf, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
+            standardize_x=standardize, intercept=intercept,
+            path_mode="batch"))
+
+    return cv_lasso_path(X, y, nlambda=nlambda,
+                         lambda_min_ratio=lambda_min_ratio,
+                         standardize=standardize, intercept=intercept,
+                         _path_fn=path_fn, _fold_eta_fn=fold_eta,
+                         device=device, **kw)
+
+
+def _matrix_eta(res, X_rows):
+    """A multitask or multinomial fold's (n_f, L, K) linear predictors."""
+    return res.beta0[None, :, :] + torch.einsum("np,lpk->nlk", X_rows,
+                                                res.coef)
+
+
+def _matrix_cv_setup(n, nfolds, seed, foldid, path_kw):
+    """The shared front of the matrix-response CV drivers: ``(weights,
+    foldid, nfolds)`` as numpy, ``fold_mesh`` refused."""
+    _not_ported(fold_mesh=path_kw.pop("fold_mesh", None))
+    w = path_kw.pop("weights", None)
+    w = None if w is None else np.asarray(to_numpy(w), np.float64).ravel()
+    foldid, nfolds = _cv_foldid(n, nfolds, seed, foldid)
+    return w, foldid, nfolds
+
+
+def _onepass(cv_mode, path_kw):
+    if cv_mode not in ("auto", "onepass", "loop"):
+        raise ValueError("cv_mode must be 'auto', 'onepass' or 'loop'")
+    onepass = cv_mode != "loop" and not any(
+        path_kw.get(k) is not None for k in ("trace_len", "data_mesh"))
+    if cv_mode == "onepass" and not onepass:
+        raise ValueError("cv_mode='onepass' does not support "
+                         "trace_len/data_mesh")
+    return onepass
+
+
+def _fold_masks(foldid, nfolds, w, dtype, device):
+    masks = (foldid[None, :] != np.arange(nfolds)[:, None]).astype(np.float64)
+    if w is not None:
+        masks = masks * w[None, :]
+    return torch.as_tensor(masks, dtype=dtype, device=device)
+
+
+def _select(lams, cvm, cvsd):
+    i_min = int(np.argmin(cvm))
+    within = cvm <= cvm[i_min] + cvsd[i_min]
+    return float(lams[i_min]), float(lams[np.flatnonzero(within)[0]])
+
+
+def cv_multitask_lasso_path(X, Y, *, nfolds: int = 10, seed: int = 0,
+                            foldid: Optional[np.ndarray] = None,
+                            nlambda: int = 50, cv_mode: str = "auto",
+                            keep: bool = False, device="cuda",
+                            **path_kw) -> CVResult:
+    """Cross-validated multi-task Lasso path, scored by the per-observation
+    squared error summed over tasks.  Same arguments and defaults as
+    ``admm_tpu.cv_multitask_lasso_path``, plus ``device``; ``path_kw``
+    forwards to :func:`~admm_tpu_torch.models.multitask.
+    multitask_lasso_path`.  ``cv_mode``: "onepass" (the default through
+    "auto") fits fold f as the weighted batch path with weight 0 on its
+    rows, fold after fold on the device; "loop" refits each training
+    subset.  ``keep`` returns the (n, L, K) prevalidated predictors."""
+    from .multitask import _keep_mask, _mt_path, multitask_lasso_path
+
+    onepass = _onepass(cv_mode, path_kw)
+    dtype = path_kw.pop("dtype", None) or torch.float32
+    X = _as_tensor(X, dtype, device)
+    Y_np = np.asarray(to_numpy(Y), np.float64)
+    n, p = X.shape
+    off = path_kw.pop("offset", None)
+    if off is not None:
+        off = np.asarray(to_numpy(off), np.float64)
+        if off.shape != Y_np.shape:
+            raise ValueError("offset must match Y's (n, K) shape")
+    w, foldid, nfolds = _matrix_cv_setup(n, nfolds, seed, foldid, path_kw)
+    full = multitask_lasso_path(X, Y_np, nlambda=nlambda, offset=off,
+                                weights=w, dtype=dtype, device=X.device,
+                                **path_kw)
+    path_kw.pop("lambdas", None)   # the fold fits take the shared grid
+    lams = to_numpy(full.lambdas).astype(np.float64)
+    Yf = Y_np if off is None else Y_np - off        # the fits see Y - off
+    if onepass:
+        pf, _ = validate_pf_limits(path_kw.get("penalty_factor"), None, None,
+                                   None, p, dtype, X.device)
+        keep_m = _keep_mask(path_kw.get("exclude"), p, dtype, X.device)
+        Yt = torch.as_tensor(Yf, dtype=dtype, device=X.device)
+        eta_all = to_numpy(_fold_sweep(
+            X, _fold_masks(foldid, nfolds, w, dtype, X.device),
+            np.clip(foldid, 0, None), lambda mask: _mt_path(
+                X, Yt, 2, 1e-2, full.lambdas, path_kw.get("rho", -1.0),
+                path_kw.get("maxit", 10000), path_kw.get("eps_abs", 1e-5),
+                path_kw.get("eps_rel", 1e-5), mask, pf, keep_m,
+                float(path_kw.get("alpha", 1.0)),
+                standardize_x=path_kw.get("standardize", True),
+                intercept=path_kw.get("intercept", True), path_mode="batch",
+                standardize_y=bool(path_kw.get("standardize_response",
+                                               False)),
+                penalty=path_kw.get("penalty", "rows")),
+            _matrix_eta)).astype(np.float64)
+        if off is not None:
+            eta_all = eta_all + off[:, None, :]
+        err = ((eta_all - Y_np[:, None, :]) ** 2).sum(axis=2)
+    else:
+        X_np = to_numpy(X).astype(np.float64)
+        err = np.full((n, lams.shape[0]), np.nan)
+        eta_all = np.full((n, lams.shape[0], Y_np.shape[1]), np.nan)
+        for f in range(nfolds):
+            tr, va = foldid != f, foldid == f
+            res = multitask_lasso_path(
+                X[torch.as_tensor(np.flatnonzero(tr), device=X.device)],
+                Y_np[tr], lambdas=lams, weights=None if w is None else w[tr],
+                offset=None if off is None else off[tr], dtype=dtype,
+                device=X.device, **path_kw)
+            pred = (to_numpy(res.beta0).astype(np.float64)[:, None, :]
+                    + np.einsum("vp,lpk->lvk", X_np[va],
+                                to_numpy(res.coef).astype(np.float64)))
+            if off is not None:
+                pred = pred + off[va][None, :, :]
+            eta_all[va] = np.moveaxis(pred, 0, 1)
+            err[va] = ((pred - Y_np[va][None]) ** 2).sum(axis=2).T
+    cvm, cvsd = _cv_curve(err, foldid, w)
+    lambda_min, lambda_1se = _select(lams, cvm, cvsd)
+    return CVResult(lambdas=lams, cvm=cvm, cvsd=cvsd, lambda_min=lambda_min,
+                    lambda_1se=lambda_1se, fit=full, foldid=foldid,
+                    fit_preval=eta_all if keep else None)
+
+
+def cv_multinomial_path(X, y, *, nfolds: int = 10, seed: int = 0,
+                        foldid: Optional[np.ndarray] = None,
+                        nlambda: int = 50, type_measure: str = "deviance",
+                        cv_mode: str = "auto", keep: bool = False,
+                        device="cuda", **path_kw) -> CVResult:
+    """Cross-validated sparse multinomial path, scored by the multinomial
+    deviance ``-2 log p_{i, y_i}`` or by ``type_measure`` 'class'
+    (misclassification of the argmax), 'mse'/'mae' (over the class
+    probabilities against the indicators).  Same arguments and defaults as
+    ``admm_tpu.cv_multinomial_path``, plus ``device``; ``path_kw``
+    forwards to :func:`~admm_tpu_torch.models.multinomial.
+    multinomial_lasso_path`.  ``cv_mode`` as in
+    :func:`cv_multitask_lasso_path`."""
+    from .multinomial import _mn_path, multinomial_lasso_path
+    from .multitask import _keep_mask
+
+    if type_measure not in ("deviance", "default", "class", "mse", "mae"):
+        raise ValueError("multinomial type_measure must be 'deviance',"
+                         " 'class', 'mse' or 'mae'")
+    onepass = _onepass(cv_mode, path_kw)
+    dtype = path_kw.pop("dtype", None) or torch.float32
+    X = _as_tensor(X, dtype, device)
+    y = np.asarray(to_numpy(y)).ravel().astype(np.int64)
+    n, p = X.shape
+    C = int(y.max()) + 1
+    path_kw.setdefault("nclass", C)
+    off = path_kw.pop("offset", None)
+    if off is not None:
+        off = np.asarray(to_numpy(off), np.float64)
+        if off.shape != (n, C):
+            raise ValueError("offset must be (n, nclass)")
+    w, foldid, nfolds = _matrix_cv_setup(n, nfolds, seed, foldid, path_kw)
+    full = multinomial_lasso_path(X, y, nlambda=nlambda, offset=off,
+                                  weights=w, dtype=dtype, device=X.device,
+                                  **path_kw)
+    path_kw.pop("lambdas", None)   # the fold fits take the shared grid
+    lams = to_numpy(full.lambdas).astype(np.float64)
+    if onepass:
+        pf, _ = validate_pf_limits(path_kw.get("penalty_factor"), None, None,
+                                   None, p, dtype, X.device)
+        keep_p = _keep_mask(path_kw.get("exclude"), p, dtype, X.device)
+        off_t = (None if off is None
+                 else torch.as_tensor(off, dtype=dtype, device=X.device))
+        y_t = torch.as_tensor(y, device=X.device)
+        eta_all = to_numpy(_fold_sweep(
+            X, _fold_masks(foldid, nfolds, w, dtype, X.device),
+            np.clip(foldid, 0, None), lambda mask: _mn_path(
+                X, y_t, 2, 1e-2, full.lambdas, path_kw.get("rho", -1.0),
+                path_kw.get("maxit", 10000), path_kw.get("eps_abs", 1e-5),
+                path_kw.get("eps_rel", 1e-5), path_kw.get("alpha", 1.0),
+                mask, pf, keep_p, off_t, nclass=C,
+                standardize_x=path_kw.get("standardize", True),
+                intercept=path_kw.get("intercept", True), path_mode="batch",
+                grouped=bool(path_kw.get("grouped", False)),
+                newton_steps=int(path_kw.get("newton_steps", 2))),
+            _matrix_eta)).astype(np.float64)                  # (n, L, C)
+        if off is not None:
+            eta_all = eta_all + off[:, None, :]
+    else:
+        X_np = to_numpy(X).astype(np.float64)
+        eta_all = np.full((n, lams.shape[0], C), np.nan)
+        for f in range(nfolds):
+            tr, va = foldid != f, foldid == f
+            res = multinomial_lasso_path(
+                X[torch.as_tensor(np.flatnonzero(tr), device=X.device)],
+                y[tr], lambdas=lams, weights=None if w is None else w[tr],
+                offset=None if off is None else off[tr], dtype=dtype,
+                device=X.device, **path_kw)
+            eta = (to_numpy(res.beta0).astype(np.float64)[:, None, :]
+                   + np.einsum("vp,lpc->lvc", X_np[va],
+                               to_numpy(res.coef).astype(np.float64)))
+            if off is not None:
+                eta = eta + off[va][None, :, :]
+            eta_all[va] = np.moveaxis(eta, 0, 1)
+    # Stable log-softmax scoring over every scored row at once.
+    scored = foldid >= 0
+    ev = eta_all[scored]
+    ev = ev - ev.max(axis=2, keepdims=True)
+    logp = ev - np.log(np.exp(ev).sum(axis=2, keepdims=True))
+    ys = y[scored]
+    dev = np.full((n, lams.shape[0]), np.nan)
+    if type_measure == "class":
+        dev[scored] = (np.argmax(logp, axis=2) != ys[:, None]).astype(float)
+    elif type_measure in ("mse", "mae"):
+        ind = np.zeros((ys.size, C))
+        ind[np.arange(ys.size), ys] = 1.0
+        d = np.exp(logp) - ind[:, None, :]
+        dev[scored] = (np.abs(d).sum(axis=2) if type_measure == "mae"
+                       else (d ** 2).sum(axis=2))
+    else:
+        dev[scored] = -2.0 * logp[np.arange(ys.size), :, ys]
+    cvm, cvsd = _cv_curve(dev, foldid, w)
+    lambda_min, lambda_1se = _select(lams, cvm, cvsd)
+    return CVResult(lambdas=lams, cvm=cvm, cvsd=cvsd, lambda_min=lambda_min,
+                    lambda_1se=lambda_1se, fit=full, foldid=foldid,
+                    fit_preval=eta_all if keep else None)

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
 Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector,
 the penalized GLM paths (logistic, Huber, Poisson), cross-validation and
-prediction.
+prediction, and the families that run on the engines.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,12 @@ Phases, in order:
    ``cv_logistic_path``, a penalty-factor-and-box path and the adaptive
    lasso (no launch), each against its float64 run, ``predict`` and
    ``assess`` on the tall CV, their end-to-end times and the tall CV's
-   stages;
+   stages; then "traces, active set and the first families"
+   (:func:`families_phase`) and "the second families"
+   (:func:`second_families_phase`: the square-root lasso, SLOPE, SVM,
+   multi-task, nuclear-norm, multinomial and quantile paths and their CV
+   drivers, none of which may launch a kernel, each against its float64
+   run on the card);
 5. kernel and plain times, and each entry point end to end: median of 5
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
@@ -72,6 +77,15 @@ PATH_BAR = 5e-4       # main path (float32 kernels) vs float64 engine
 # LAD and BP: the precision-aware defaults of the port (models/lad.py).
 RHO_L1, EPS_L1 = 5.0, 2e-5
 LAD_COEF_BAR, LAD_OBJ_BAR = 5e-3, 1.001   # tests/test_pallas_kernels.py
+# The quantile path at 2000 x 200 (t(3) noise): some lanes run to maxit in
+# either precision, in the JAX package too, whose float32 path is 6.55e-3
+# from its float64 one there on the CPU (and its float64 paths at eps 1e-5
+# and 1e-6 part by 7.8e-3); the pinball objective is held at LAD_OBJ_BAR.
+QUANTILE_COEF_BAR = 1e-2
+# Its CV curves: twice the JAX package's own bar between its two CV
+# protocols (rel 1e-3, tests/test_quantile.py), since the fold fits part
+# by up to 6.8e-3 in the check loss's flat directions (1.2e-3 on the H100).
+QUANTILE_CV_BAR = 2e-3
 BP_Z_BAR = 1e-4                           # kernel vs plain, same file
 BP_F64_BAR = 1e-3                         # main path vs float64 engine
 BP_RECOVERY_BAR = 2.11e-3                 # the reference README's published error
@@ -321,9 +335,6 @@ def cv_phase(torch, smoke, record, X, y, Xw, yw, Xg, yg, kg, f32):
     def idx(cv, lam):
         return int(np.argmin(np.abs(cv.lambdas - lam)))
 
-    def to_np(v):
-        return v.detach().cpu().numpy().astype(np.float64)
-
     for (label, _, _, _, ref_call), out in zip(calls, outs):
         ref = ref_call()
         fit, fit_ref = (out.fit, ref.fit) if hasattr(out, "fit") else (out,
@@ -476,6 +487,50 @@ def activeset_threshold(lasso_mod, p):
         lasso_mod._ACTIVESET_AUTO_P = saved
 
 
+def to_np(v):
+    return v.detach().cpu().numpy().astype(np.float64)
+
+
+def gap_of(a, b):
+    return float(np.abs(to_np(a) - to_np(b)).max())
+
+
+def counted_call(torch, smoke, record, label, call, want):
+    """``call()`` with the launch counts at 0 before and read after;
+    ``want`` maps the kernels that must launch to their count (none other
+    may); the counts add to ``record``'s.  Returns (result, first call's
+    ms on the host clock)."""
+    from admm_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = kernels.launch_counts()
+    smoke.check(after == {**dict.fromkeys(after, 0), **want},
+                f"{label}: launches {after} (want {want or 'none'})")
+    for name, launched in after.items():
+        record[name]["launches"] += launched
+    return out, ms
+
+
+def held_to(smoke, label, out, ref, bar=PATH_BAR, what="float64",
+            fields=("coef", "beta0")):
+    """Finite, the reference's shape, each of ``fields`` within ``bar`` of
+    the reference's.  Returns the first field's gap."""
+    first = getattr(out, fields[0])
+    gaps = [gap_of(getattr(out, f), getattr(ref, f)) for f in fields]
+    smoke.check(bool(np.isfinite(to_np(first)).all())
+                and first.shape == getattr(ref, fields[0]).shape,
+                f"{label}: finite, shape {tuple(first.shape)}")
+    smoke.check(max(gaps) <= bar,
+                f"{label}: within {bar} of {what} ("
+                + ", ".join(f"{f} gap {g:.3e}" for f, g in zip(fields, gaps))
+                + ")")
+    return gaps[0]
+
+
 def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
     """Phase 4c, "traces, active set and the first families": traced
     ``lasso_path`` (scan and batch) and a traced LAD fit, the active-set
@@ -489,7 +544,6 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
     timings after a warm-up; the engine-bound calls their first call on
     the host clock; the relaxed lasso and its CV also stage by stage."""
     import admm_tpu_torch as t
-    from admm_tpu_torch import kernels
     from admm_tpu_torch.kernels import tall_path, wide_path
     from admm_tpu_torch.models import cv as cv_mod
     from admm_tpu_torch.models import lasso as lasso_mod
@@ -499,39 +553,8 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
     f64 = dict(dtype=torch.float64)
     nfolds = 10
 
-    def to_np(v):
-        return v.detach().cpu().numpy().astype(np.float64)
-
-    def counted(label, call, want):
-        """``call()`` with the counts at 0 before and read after; ``want``
-        maps the kernels that must launch to their count (none other
-        may).  Returns (result, first call's ms on the host clock)."""
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = call()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        after = kernels.launch_counts()
-        smoke.check(after == {**dict.fromkeys(after, 0), **want},
-                    f"{label}: launches {after} (want {want or 'none'})")
-        for name, launched in after.items():
-            record[name]["launches"] += launched
-        return out, ms
-
-    def gap_of(a, b):
-        return float(np.abs(to_np(a) - to_np(b)).max())
-
-    def held(label, out, ref, bar=PATH_BAR, what="float64"):
-        """Finite, the reference's shape, within ``bar`` of it."""
-        gap = gap_of(out.coef, ref.coef)
-        gap0 = gap_of(out.beta0, ref.beta0)
-        smoke.check(bool(torch.isfinite(out.coef).all())
-                    and out.coef.shape == ref.coef.shape,
-                    f"{label}: finite, shape {tuple(out.coef.shape)}")
-        smoke.check(gap <= bar and gap0 <= bar,
-                    f"{label}: within {bar} of {what} (coef gap {gap:.3e}, "
-                    f"beta0 gap {gap0:.3e})")
-        return gap
+    counted = partial(counted_call, torch, smoke, record)
+    held = partial(held_to, smoke)
 
     # -- Tracing: the engine, never a kernel. -----------------------------
     # The traced path is the float32 engine; so is the untraced path with
@@ -638,13 +661,6 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
                      + ("batched engine" if mode == "batch" else "engine"))
                   + f"), niter total {int(to_np(out.niter).sum())}, max "
                   f"{int(to_np(out.niter).max())}, |coef - f64| {gap:.3e}")
-        # The scan-protocol choice, in turns on one card: activeset and
-        # scan again (A, S, S, A with the calls above), host clock.
-        for mode in ("scan", "activeset"):
-            t0 = time.perf_counter()
-            mode_call(mode)
-            torch.cuda.synchronize()
-            rows[mode][1].append((time.perf_counter() - t0) * 1e3)
         # Two solvers stopped by the same relative test: their gap scales
         # with the response (sd(y) 14 and 20 here), so it is held on the
         # standardized scale, as the JAX package's benchmark reports it.
@@ -833,6 +849,259 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
                    (tall_path, "tall_path_batch", "tall_path_batch"),
                    (relaxed_mod, "_masked_refits", "_masked_refits")],
            lambda: t.cv_relaxed_lasso_path(X, y, nfolds=nfolds))
+
+
+def second_problems(seed=123):
+    """The second families' problems, after the JAX package's benchmark
+    generators (benchmarks/run_baselines.py ``bench_round4`` and
+    ``bench_multi``), each from its own ``default_rng(seed)``: the
+    10000 x 500 design of the SLOPE and sqrt-lasso rows (10 normal slopes,
+    unit noise), the 2000 x 100 SVM problem, the 10000 x 1000 x K=8
+    multi-task problem (100 random rows of uniform(-1, 1) slopes), the
+    2000 x 200 x C=5 multinomial problem (10 rows of uniform(-1.5, 1.5)
+    slopes, labels drawn from the softmax), and for the quantile path, which
+    has no benchmark row, the GLM sweep's 2000 x 200 design
+    (:func:`glm_problem`'s) with the JAX package's quantile test response
+    (0.7 + X b + t(3) noise)."""
+    out = {}
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(10000, 500))
+    b = np.zeros(500)
+    b[:10] = rng.normal(size=10)
+    out["sqrt"] = (X.astype(np.float32),
+                   (X @ b + rng.normal(size=10000)).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(2000, 100))
+    out["svm"] = (X.astype(np.float32),
+                  np.sign(X @ rng.normal(size=100)
+                          + 0.3 * rng.normal(size=2000)))
+    rng = np.random.default_rng(seed)
+    B = np.zeros((1000, 8))
+    B[rng.choice(1000, 100, replace=False)] = rng.uniform(-1, 1, (100, 8))
+    X = rng.normal(size=(10000, 1000))
+    out["multitask"] = (X.astype(np.float32),
+                        (X @ B + rng.normal(size=(10000, 8)))
+                        .astype(np.float32))
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(2000, 200))
+    BC = np.zeros((200, 5))
+    BC[:10] = rng.uniform(-1.5, 1.5, (10, 5))
+    eta = X @ BC
+    pr = np.exp(eta - eta.max(axis=1, keepdims=True))
+    pr /= pr.sum(axis=1, keepdims=True)
+    out["multinomial"] = (X.astype(np.float32),
+                          np.array([rng.choice(5, p=pi) for pi in pr]))
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(2000, 200))
+    b = np.zeros(200)
+    b[:10] = rng.uniform(0.5, 1.5, 10)
+    out["quantile"] = (X.astype(np.float32),
+                       (0.7 + X @ b + rng.standard_t(3, size=2000))
+                       .astype(np.float32))
+    return out
+
+
+def pinball_objective(res, X, y):
+    """(T, L) objectives of a quantile path on the original scale: the
+    mean check loss plus lambda times the l1 norm of the standardized
+    slopes (the solved objective, times sd(y))."""
+    X = X.astype(np.float64)
+    y = y.astype(np.float64)
+    taus = to_np(res.taus)[:, None, None]
+    coef = to_np(res.coef)                              # (T, L, p)
+    r = y - (to_np(res.beta0)[..., None] + coef @ X.T)
+    loss = np.where(r > 0, taus * r, (taus - 1.0) * r).mean(axis=-1)
+    scale = X.std(axis=0) / y.std()
+    return loss + to_np(res.lambdas) * (np.abs(coef) * scale).sum(axis=-1)
+
+
+def second_families_phase(torch, smoke, record):
+    """Phase 4d, "the second families": ``sqrt_lasso_path`` (batch and
+    scan), ``slope_path`` (auto -> scan), ``svm_path``,
+    ``multitask_lasso_path`` and ``multitask_nuclear_path``,
+    ``multinomial_lasso_path`` at the JAX package's benchmark sizes
+    (:func:`second_problems`), then their CV drivers with 10 folds, and
+    ``cv_quantile_lasso_path`` with 3 (its full fit is the quantile path's
+    cell).  None may launch a kernel: every call runs with the launch
+    counts at 0 just before it and read just after.  Each is held against
+    the port's float64 run on the card at ``PATH_BAR``, the quantile path
+    as LAD is (the pinball objective within ``LAD_OBJ_BAR``; coefficients
+    within ``QUANTILE_COEF_BAR``); times are first calls on the host
+    clock.  Then the sorted-l1 prox's two isotonic projections
+    on the card at p = 500 and 4096."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.models import slope as slope_mod
+
+    print("phase: the second families", flush=True)
+    t_phase = time.perf_counter()
+    counted = partial(counted_call, torch, smoke, record)
+    held = partial(held_to, smoke)
+    f64 = dict(dtype=torch.float64)
+    nfolds = 10
+    P = second_problems()
+    Xs, ys = P["sqrt"]
+    Xv, yv = P["svm"]
+    Xm, Ym = P["multitask"]
+    Xc, yc = P["multinomial"]
+    Xq, yq = P["quantile"]
+    taus = [0.25, 0.5, 0.75]
+    ns, ps = Xs.shape
+    nm, pm = Xm.shape
+    nc, pc = Xc.shape
+
+    def line(label, out, ms, gap, extra=""):
+        nit = to_np(out.niter)
+        print(f"  {label}: first call {ms:.1f} ms (host clock), niter total "
+              f"{int(nit.sum())} max {int(nit.max())}, max gap to f64 "
+              f"{gap:.3e}{extra}", flush=True)
+
+    paths = [
+        (f"sqrt_lasso_path(Xs, ys)  [{ns} x {ps} x 30, batch]",
+         lambda **kw: t.sqrt_lasso_path(Xs, ys, **kw), ("coef", "beta0")),
+        (f"sqrt_lasso_path(Xs, ys, path_mode='scan')  [{ns} x {ps} x 30]",
+         lambda **kw: t.sqrt_lasso_path(Xs, ys, path_mode="scan", **kw),
+         ("coef", "beta0")),
+        (f"slope_path(Xs, ys)  [{ns} x {ps} x 30, BH q = 0.1, auto -> scan]",
+         lambda **kw: t.slope_path(Xs, ys, **kw), ("coef", "beta0")),
+        (f"svm_path(Xv, yv)  [{Xv.shape[0]} x {Xv.shape[1]} x 20 C, "
+         "squared hinge]", lambda **kw: t.svm_path(Xv, yv, **kw),
+         ("coef", "intercept")),
+        (f"multitask_lasso_path(Xm, Ym)  [{nm} x {pm} x K=8 x 50]",
+         lambda **kw: t.multitask_lasso_path(Xm, Ym, **kw),
+         ("coef", "beta0")),
+        (f"multitask_nuclear_path(Xm, Ym)  [{nm} x {pm} x K=8 x 50]",
+         lambda **kw: t.multitask_nuclear_path(Xm, Ym, **kw),
+         ("coef", "beta0")),
+        (f"multinomial_lasso_path(Xc, yc, nlambda=50)  [{nc} x {pc} x C=5]",
+         lambda **kw: t.multinomial_lasso_path(Xc, yc, nlambda=50, **kw),
+         ("coef", "beta0")),
+    ]
+    for label, call, fields in paths:
+        out, ms = counted(label, call, {})
+        ref = call(**f64)
+        gap = held(label, out, ref, fields=fields)
+        line(label, out, ms, gap)
+        del out, ref
+    # -- The CV drivers. ---------------------------------------------------
+    def lam_index(grid, lam):
+        return int(np.argmin(np.abs(np.asarray(grid) - lam)))
+
+    def curve(label, cvm, cvm_ref, grid, lam, lam_ref, bar, what):
+        rel = float(np.max(np.abs(cvm - cvm_ref) / np.abs(cvm_ref)))
+        i, j = lam_index(grid, lam), lam_index(grid, lam_ref)
+        tie = abs(cvm_ref[i] - cvm_ref[j]) <= 1e-5 * abs(cvm_ref[j])
+        smoke.check(np.isfinite(cvm).all() and cvm.shape == cvm_ref.shape,
+                    f"{label}: finite curves")
+        smoke.check(bool(np.all(np.abs(cvm - cvm_ref)
+                                <= bar * np.abs(cvm_ref))),
+                    f"{label}: cvm within {what} of float64 (max rel gap "
+                    f"{rel:.3e})")
+        smoke.check(i == j or tie, f"{label}: lambda_min at float64's grid "
+                    f"point ({i} vs {j}) or a cvm tie within rtol 1e-5")
+        return rel
+
+    cv_calls = [
+        (f"cv_sqrt_lasso_path(Xs, ys)  [{ns} x {ps} x 30, {nfolds} folds]",
+         lambda **kw: t.cv_sqrt_lasso_path(Xs, ys, nfolds=nfolds, **kw)),
+        (f"cv_slope_path(Xs, ys)  [{ns} x {ps} x 30, {nfolds} folds]",
+         lambda **kw: t.cv_slope_path(Xs, ys, nfolds=nfolds, **kw)),
+        (f"cv_multitask_lasso_path(Xm, Ym)  [{nm} x {pm} x K=8 x 50, "
+         f"{nfolds} folds]",
+         lambda **kw: t.cv_multitask_lasso_path(Xm, Ym, nfolds=nfolds, **kw)),
+        (f"cv_multinomial_path(Xc, yc, nlambda=50)  [{nc} x {pc} x C=5, "
+         f"{nfolds} folds]",
+         lambda **kw: t.cv_multinomial_path(Xc, yc, nlambda=50,
+                                            nfolds=nfolds, **kw)),
+    ]
+    for label, call in cv_calls:
+        out, ms = counted(label, call, {})
+        ref = call(**f64)
+        held(f"{label} full fit", out.fit, ref.fit)
+        rel = curve(label, out.cvm, ref.cvm, ref.lambdas, out.lambda_min,
+                    ref.lambda_min, 1e-4, "rtol 1e-4")
+        eta = t.predict(out, (Xm if "multitask" in label else Xc
+                              if "multinomial" in label else Xs)[:4],
+                        lam="lambda.min")
+        smoke.check(np.isfinite(eta).all() and eta.shape[0] == 4,
+                    f"{label}: predict(cv, X, lam='lambda.min') runs")
+        print(f"  {label}: first call {ms:.1f} ms (host clock), cvm max rel "
+              f"gap to f64 {rel:.3e}, lambda_min index "
+              f"{lam_index(ref.lambdas, out.lambda_min)} (f64 "
+              f"{lam_index(ref.lambdas, ref.lambda_min)}), full fit niter "
+              f"total {int(to_np(out.fit.niter).sum())}", flush=True)
+        del out, ref
+    # The SVM's default measure is misclassification, which moves in steps
+    # of 1/n: a row at the margin may flip between precisions, so the
+    # curve is held to two rows.
+    label = (f"cv_svm_path(Xv, yv)  [{Xv.shape[0]} x {Xv.shape[1]} x 20 C, "
+             f"{nfolds} folds, class measure]")
+    out, ms = counted(label, lambda: t.cv_svm_path(Xv, yv, nfolds=nfolds), {})
+    ref = t.cv_svm_path(Xv, yv, nfolds=nfolds, **f64)
+    held(f"{label} full fit", out.fit, ref.fit, fields=("coef", "intercept"))
+    flips = float(np.max(np.abs(out.cvm - ref.cvm)) * Xv.shape[0])
+    smoke.check(flips <= 2.0 + 1e-6, f"{label}: cvm within 2 rows of "
+                f"float64 ({flips:.1f} rows)")
+    i, j = lam_index(ref.Cs, out.C_min), lam_index(ref.Cs, ref.C_min)
+    smoke.check(i == j or abs(ref.cvm[i] - ref.cvm[j]) <= 2.0 / Xv.shape[0],
+                f"{label}: C_min at float64's grid point ({i} vs {j}) or "
+                "within 2 rows of its cvm")
+    cls = t.predict(out, Xv[:4], type="class")
+    smoke.check(set(np.unique(cls)) <= {-1.0, 1.0},
+                f"{label}: predict(cv, X, type='class') gives the labels")
+    print(f"  {label}: first call {ms:.1f} ms (host clock), cvm max gap "
+          f"{flips:.1f} rows, C_min index {i} (f64 {j})", flush=True)
+    # The quantile path and its CV, in one call: its full fit is the
+    # path the user calls, held as LAD is (pinball objective within
+    # LAD_OBJ_BAR of float64) with the coefficients at QUANTILE_COEF_BAR;
+    # the curves at QUANTILE_CV_BAR.  Some lanes run to maxit (20000), so
+    # each solve takes the same 20000 iterations: 3 folds, not 10.
+    qfolds = 3
+    label = (f"cv_quantile_lasso_path(Xq, yq, tau={taus})  [{Xq.shape[0]} "
+             f"x {Xq.shape[1]} x 30, {qfolds} folds]")
+    out, ms = counted(label, lambda: t.cv_quantile_lasso_path(
+        Xq, yq, tau=taus, nfolds=qfolds), {})
+    ref = t.cv_quantile_lasso_path(Xq, yq, tau=taus, nfolds=qfolds, **f64)
+    fit, fit_ref = out["fit"], ref["fit"]
+    gap = held(f"{label} full fit", fit, fit_ref, bar=QUANTILE_COEF_BAR)
+    ratio = float(np.max(pinball_objective(fit, Xq, yq)
+                         / pinball_objective(fit_ref, Xq, yq)))
+    smoke.check(ratio <= LAD_OBJ_BAR, f"{label} full fit: pinball objective "
+                f"within {LAD_OBJ_BAR} of float64 (worst ratio {ratio:.6f})")
+    rels = [curve(f"{label} tau {tau}", out["cvm"][k], ref["cvm"][k],
+                  ref["lambdas"][k], out["lambda_min"][k],
+                  ref["lambda_min"][k], QUANTILE_CV_BAR,
+                  f"rtol {QUANTILE_CV_BAR}")
+            for k, tau in enumerate(taus)]
+    eta = t.predict(out, Xq[:4], tau=0.5, lam="lambda.min")
+    smoke.check(np.isfinite(eta).all() and eta.shape == (4,),
+                f"{label}: predict(cv, X, tau=0.5) runs")
+    nit, nit_ref = to_np(fit.niter), to_np(fit_ref.niter)
+    print(f"  {label}: first call {ms:.1f} ms (host clock), full fit niter "
+          f"total {int(nit.sum())} max {int(nit.max())} (f64 "
+          f"{int(nit_ref.sum())}, max {int(nit_ref.max())}), coef gap to "
+          f"f64 {gap:.3e}, worst objective ratio {ratio:.6f}, cvm max rel gap "
+          f"to f64 {max(rels):.3e}", flush=True)
+    del out, ref, fit, fit_ref
+
+    # -- The sorted-l1 prox's two projections on the card. -----------------
+    # Timed in float32; the two agree in float64 (in float32 the dense
+    # table's prefix-sum differences round at ~1e-7 * sum|v|).
+    for p in (500, 4096):
+        v64 = torch.as_tensor(np.random.default_rng(123).normal(size=p),
+                              dtype=torch.float64, device="cuda")
+        lam64 = torch.as_tensor(t.bh_sequence(p, 0.1) * 0.05,
+                                dtype=torch.float64, device="cuda")
+        gap = gap_of(slope_mod.prox_sorted_l1(v64, lam64, "dense"),
+                     slope_mod.prox_sorted_l1(v64, lam64, "pava"))
+        smoke.check(gap <= 1e-10, f"prox_sorted_l1 p = {p}: dense and pava "
+                    f"agree in float64 ({gap:.2e})")
+        v, lam = v64.float(), lam64.float()
+        ms = {m: cuda_median_ms(torch, lambda m=m: slope_mod.prox_sorted_l1(
+            v, lam, m)) for m in ("dense", "pava")}
+        print(f"  prox_sorted_l1 p = {p}: dense {ms['dense']:.3f} ms, pava "
+              f"{ms['pava']:.3f} ms (median of 5, CUDA events)")
+    print(f"  phase 'the second families': {time.perf_counter() - t_phase:.1f}"
+          " s on the host clock", flush=True)
 
 
 def main() -> int:
@@ -1332,6 +1601,9 @@ def main() -> int:
 
     # 4c. Traces, the active set and the first families.
     families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl)
+
+    # 4d. The second families.
+    second_families_phase(torch, smoke, record)
 
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "

@@ -996,3 +996,51 @@ def test_activeset_gives_the_same_bits_twice(dev):
         for _ in range(2)]
     assert torch.equal(capped[0][0], capped[1][0])
     assert torch.equal(capped[0][1], capped[1][1])
+
+
+SECOND_FAMILIES = ["sqrt_lasso_path", "quantile_lasso_path", "slope_path",
+                   "svm_path", "multitask_lasso_path",
+                   "multitask_nuclear_path", "multinomial_lasso_path"]
+
+
+@pytest.mark.parametrize("family", SECOND_FAMILIES)
+def test_second_families_on_the_card_launch_nothing(dev, family):
+    """The square-root, quantile, SLOPE, SVM, multi-task and multinomial
+    paths run the engine on the card (no kernel launches) and equal their
+    float64 runs on the CPU: coefficients within 1e-6, niter within 1 per
+    path point."""
+    import admm_tpu_torch as t
+
+    rng = np.random.default_rng(11)
+    n, p = 120, 10
+    X = rng.normal(size=(n, p))
+    B = np.zeros((p, 3))
+    B[:3] = rng.normal(size=(3, 3))
+    eta = X @ B
+    y = eta[:, 0] + 0.5 * rng.normal(size=n)
+    Y = eta + 0.5 * rng.normal(size=(n, 3))
+    cls = np.argmax(eta + rng.gumbel(size=(n, 3)), axis=1)
+    call = {
+        "sqrt_lasso_path": lambda **kw: t.sqrt_lasso_path(X, y, nlambda=6,
+                                                          **kw),
+        "quantile_lasso_path": lambda **kw: t.quantile_lasso_path(
+            X, y, tau=[0.3, 0.7], nlambda=3, eps_abs=1e-5, eps_rel=1e-5,
+            **kw),
+        "slope_path": lambda **kw: t.slope_path(X, y, nlambda=6, **kw),
+        "svm_path": lambda **kw: t.svm_path(X, y > 0, nC=5, **kw),
+        "multitask_lasso_path": lambda **kw: t.multitask_lasso_path(
+            X, Y, nlambda=5, **kw),
+        "multitask_nuclear_path": lambda **kw: t.multitask_nuclear_path(
+            X, Y, nlambda=5, **kw),
+        "multinomial_lasso_path": lambda **kw: t.multinomial_lasso_path(
+            X, cls, nlambda=5, **kw),
+    }[family]
+    kernels.reset_launch_counts()
+    card = call(device=dev, dtype=torch.float64)
+    assert not any(kernels.launch_counts().values())
+    host = call(device="cpu", dtype=torch.float64)
+    assert card.coef.device.type == "cuda"
+    np.testing.assert_allclose(card.coef.cpu().numpy(), host.coef.numpy(),
+                               atol=1e-6, rtol=1e-7)
+    gap = (card.niter.cpu().to(torch.int64) - host.niter).abs().max()
+    assert int(gap) <= 1
