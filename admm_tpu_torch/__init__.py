@@ -9,7 +9,10 @@ per-coordinate options (penalty factors, coefficient limits, ``exclude``,
 ``dfmax``/``pmax``), the adaptive lasso, the wide active-set path, the
 (sparse-)group, generalized/fused, constrained/zero-sum and relaxed
 lasso, the square-root, quantile, SLOPE, SVM, multi-task and
-multinomial paths, k-fold cross-validation of all of these,
+multinomial paths, the graphical lasso, robust PCA and matrix completion,
+the Cox paths and their survival curves, the glmnet front end
+(``glmnet``, ``cv_glmnet``, ``big_glm``), k-fold cross-validation of all
+of these,
 per-iteration residual traces (``trace_len``, ``.opts(trace=...)``,
 :mod:`admm_tpu_torch.diag`), and ``predict``/``coef``, the path summary and
 ``assess``/``roc``/``confusion``/``c_index``.  All six of the
@@ -39,8 +42,10 @@ from .api import (ADMMBP, ADMMLAD, ADMMBPFit, ADMMDantzig, ADMMEnet,
                   admm_enet, admm_lad, admm_lasso)
 from .assess import assess, c_index, confusion, roc
 from .data.standardize import StdStats
+from .glmnet import big_glm, cv_glmnet, glmnet
 from .models.bp import BPResult, bp_fit, bp_fit_batch
 from .models.conlasso import constrained_lasso_path, zerosum_lasso_path
+from .models.cox import cox_lasso_path, cv_cox_path, survfit_cox
 from .models.cv import (CVResult, cv_constrained_lasso_path,
                         cv_dantzig_path, cv_enet_path, cv_fused_lasso_path,
                         cv_gen_lasso_path, cv_glm_path, cv_group_lasso_path,
@@ -51,6 +56,8 @@ from .models.cv import (CVResult, cv_constrained_lasso_path,
 from .models.dantzig import dantzig_path
 from .models.genlasso import (difference_matrix, difference_matrix_2d,
                               fused_lasso_path, gen_lasso_path)
+from .models.glasso import (cv_glasso_path, empirical_covariance,
+                            glasso_path, partial_correlations)
 from .models.grouplasso import group_lasso_path
 from .models.glm import (GLMFamily, binomial, binomial_cloglog,
                          binomial_probit, gamma_log, glm_lasso_path, huber,
@@ -65,6 +72,7 @@ from .models.multitask import (MTPathResult, multitask_lasso_path,
                                multitask_nuclear_path)
 from .models.quantile import (QuantilePathResult, cv_quantile_lasso_path,
                               pinball_loss, quantile_lasso_path)
+from .models.rpca import cv_rpca, matrix_complete, rpca, rpca_path
 from .models.relaxed import (RelaxedPathResult, cv_relaxed_lasso_path,
                              relaxed_lasso_path)
 from .models.slope import bh_sequence, slope_path
@@ -99,6 +107,10 @@ __all__ = [
     "cv_multitask_lasso_path", "multinomial_lasso_path",
     "cv_multinomial_path", "QuantilePathResult", "SVMResult", "CVSVMResult",
     "MTPathResult", "MNPathResult",
+    "glasso_path", "cv_glasso_path", "empirical_covariance",
+    "partial_correlations", "rpca", "matrix_complete", "rpca_path",
+    "cv_rpca", "cox_lasso_path", "cv_cox_path", "survfit_cox", "glmnet",
+    "cv_glmnet", "big_glm",
     "predict", "coef", "path_table",
     "format_path_table", "deviance", "assess", "roc", "confusion",
     "c_index", "PathResult", "LADResult", "BPResult", "CVResult",

@@ -2,8 +2,8 @@
 ``roc.glmnet``, ``confusion.glmnet`` and ``Cindex`` (counterpart of
 ``admm_tpu/assess.py``).
 
-Runs on finished gaussian and GLM ``PathResult``s, multinomial and
-multi-task results and on CV results, in
+Runs on finished gaussian and GLM ``PathResult``s, multinomial,
+multi-task and Cox results and on CV results, in
 float64 on the device of the fit's coefficients (of ``eta=`` where that
 is given instead), and returns numpy, as the JAX package does; the
 measures are those the CV drivers score
@@ -77,19 +77,25 @@ def assess(result, X, y, *, family: str = "gaussian",
       squared error summed over tasks, and ``mae``, as the multi-task CV
       scores them
 
+    * a cox result: ``deviance`` (-2 Breslow log partial likelihood, on
+      the host in float64 numpy, as the CV driver scores it) and ``C``
+      (Harrell's concordance, not under left truncation): pass
+      ``time=``/``event=`` (with ``strata=``/``start=`` as fitted) or
+      ``y`` as an (n, 2) [time, event] or (n, 3) [start, stop, event]
+      array
+
     ``eta=`` scores a given (nlambda, n) predictor matrix instead.  A CV
     result assesses its full-data fit at ``lam="lambda.1se"`` by default.
-    ``time``/``event``/``strata``/``start`` belong to cox results, which
-    are not ported yet.
     """
+    from .models.cox import CoxPathResult
     from .models.multinomial import MNPathResult
     from .models.multitask import MTPathResult
     from .models.svm import SVMResult
 
-    if any(a is not None for a in (time, event, strata, start)):
-        raise NotImplementedError(
-            "cox assessment is not ported to admm_tpu_torch yet")
     result, lam = _resolve_cv(result, lam)
+    if isinstance(result, CoxPathResult):
+        return _assess_cox(result, X, y, weights, lam, offset, time, event,
+                           strata, start)
     if isinstance(result, SVMResult):
         raise TypeError("assess takes no SVMResult: score "
                         "predict(fit, X, type='class') against the labels")
@@ -167,6 +173,44 @@ def assess(result, X, y, *, family: str = "gaussian",
         return out
     lams = (np.asarray(to_numpy(result.lambdas)) if result is not None
             else np.arange(etam.shape[0]))
+    i = int(np.argmin(np.abs(lams - float(lam))))
+    return {k: v[i] for k, v in out.items()}
+
+
+def _assess_cox(result, X, y, weights, lam, offset, time, event, strata,
+                start):
+    """:func:`assess` of a Cox path: the Breslow deviance per path point
+    (``models.cox._breslow_pl``, float64 numpy) and, without ``start``,
+    Harrell's C of ``X coef (+ offset)`` (:func:`c_index`, on the fit's
+    device)."""
+    from .models.cox import _breslow_pl
+
+    if time is None:
+        yz = np.asarray(to_numpy(y), np.float64)
+        if yz.ndim == 2 and yz.shape[1] == 3:
+            start, time, event = yz[:, 0], yz[:, 1], yz[:, 2]
+        elif yz.ndim == 2 and yz.shape[1] == 2:
+            time, event = yz[:, 0], yz[:, 1]
+        else:
+            raise ValueError("cox assess needs time=/event= or y as an "
+                             "(n, 2) [time, event] or (n, 3) [start, stop, "
+                             "event] array")
+    t = np.asarray(to_numpy(time), np.float64).ravel()
+    d = np.asarray(to_numpy(event), np.float64).ravel()
+    Xh = np.asarray(to_numpy(X), np.float64)
+    C = np.asarray(to_numpy(result.coef), np.float64)
+    host = lambda v: None if v is None else np.asarray(to_numpy(v))
+    # glmnet's newoffset: a fit made with offset= is scored at Xb + offset.
+    out = {"deviance": -2.0 * _breslow_pl(Xh, t, d, C, host(weights),
+                                          host(offset), host(strata),
+                                          host(start))}
+    if start is None:
+        # Harrell's C is undefined under left truncation.
+        etam = _predict(result, X, None, "link", "gaussian", offset, None)
+        out["C"] = np.atleast_1d(c_index(etam, t, d, weights))
+    if lam is None:
+        return out
+    lams = np.asarray(to_numpy(result.lambdas), np.float64)
     i = int(np.argmin(np.abs(lams - float(lam))))
     return {k: v[i] for k, v in out.items()}
 

@@ -5,7 +5,8 @@ The system has no weights: what crosses between ``admm_tpu`` and
 ``admm_tpu_torch`` is solver state (``ADMMState``), standardization
 statistics (``StdStats``) and results (``PathResult``, ``LADResult``,
 ``BPResult``, ``QuantilePathResult``, ``SVMResult``, ``MTPathResult``,
-``MNPathResult``), plus plain
+``MNPathResult``, ``CoxPathResult``, ``GlassoResult``, ``RPCAResult``,
+``RPCAPathResult``), plus plain
 arrays such as a ridge inverse, X'y, rho, sprad or a lambda grid.  The
 two packages' types are ``NamedTuple``s with the same names and fields;
 numpy arrays are the medium.  This module never imports JAX: the
@@ -34,13 +35,17 @@ def _port_types():
     """The port's types by name; the model modules that import this one
     are added at first use."""
     if "SVMResult" not in _PORT_TYPES:
+        from .models.cox import CoxPathResult
+        from .models.glasso import GlassoResult
         from .models.multinomial import MNPathResult
         from .models.multitask import MTPathResult
         from .models.quantile import QuantilePathResult
+        from .models.rpca import RPCAPathResult, RPCAResult
         from .models.svm import SVMResult
 
         _PORT_TYPES.update({cls.__name__: cls for cls in (
-            QuantilePathResult, SVMResult, MTPathResult, MNPathResult)})
+            QuantilePathResult, SVMResult, MTPathResult, MNPathResult,
+            CoxPathResult, GlassoResult, RPCAResult, RPCAPathResult)})
     return _PORT_TYPES
 
 

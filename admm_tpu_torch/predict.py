@@ -20,7 +20,10 @@ drivers; another result type raises ``TypeError``:
   (``"class"``), on the C grid (CV results select ``"C_min"``/``"C_1se"``);
 * ``MTPathResult``: (L, m, K) linear predictors;
 * ``MNPathResult``: (L, m, C) linear predictors, softmax probabilities
-  (``"response"``) or the argmax class (``"class"``).
+  (``"response"``) or the argmax class (``"class"``);
+* ``CoxPathResult``: (L, m) linear predictors ``X coef`` (no intercept:
+  the baseline hazard absorbs it) or the relative risk ``exp`` of them
+  (``"response"``); ``"coefficients"`` has no intercept row.
 
 ``lam`` (glmnet's ``s=``, ``exact=FALSE``) drops the leading lambda
 axis: an ``s`` on the grid is exact, an off-grid ``s`` interpolates the
@@ -78,9 +81,11 @@ def _at_lam(result, lam):
         a = _f64(a, device)
         return ((1.0 - frac) * a[left] + frac * a[right])[None]
 
+    out = {grid: np.array([s]), "coef": mix(result.coef)}
     icpt = "intercept" if grid == "Cs" else "beta0"
-    return result._replace(**{grid: np.array([s]), "coef": mix(result.coef),
-                              icpt: mix(getattr(result, icpt))})
+    if hasattr(result, icpt):        # a Cox path has no intercept
+        out[icpt] = mix(getattr(result, icpt))
+    return result._replace(**out)
 
 
 def _resolve_cv(result, lam):
@@ -194,6 +199,7 @@ def _quantile_lane(result, lam, tau):
 def _predict(result, X, lam, type, family, offset, tau):
     """:func:`predict` with the result left on the fit's device: a
     tensor, or a list of numpy index arrays for ``type="nonzero"``."""
+    from .models.cox import CoxPathResult
     from .models.lasso import PathResult
     from .models.multinomial import MNPathResult
     from .models.multitask import MTPathResult
@@ -208,7 +214,7 @@ def _predict(result, X, lam, type, family, offset, tau):
         raise ValueError("tau= applies to quantile path results only")
     result, lam = _resolve_cv(result, lam)
     if not isinstance(result, (PathResult, SVMResult, MTPathResult,
-                               MNPathResult)):
+                               MNPathResult, CoxPathResult)):
         raise TypeError(f"predict does not take "
                         f"{result.__class__.__name__} results in "
                         "admm_tpu_torch yet")
@@ -222,7 +228,7 @@ def _predict(result, X, lam, type, family, offset, tau):
                          "'coefficients' or 'nonzero'")
     device = _device_of(result)
     svm = isinstance(result, SVMResult)
-    beta0 = _f64(result.intercept if svm else result.beta0, device)
+    cox = isinstance(result, CoxPathResult)
     if type == "nonzero":
         # Matrix families: the rows with any nonzero entry.
         nz = result.coef != 0.0
@@ -232,8 +238,22 @@ def _predict(result, X, lam, type, family, offset, tau):
         return [np.flatnonzero(m) for m in nz]
     if type == "coefficients":
         coef = _f64(result.coef, device)
-        out = torch.cat([beta0[:, None], coef], dim=1)
+        out = coef if cox else torch.cat(
+            [_f64(result.intercept if svm else result.beta0,
+                  device)[:, None], coef], dim=1)
         return out[0] if squeeze else out
+    if cox:
+        eta = _f64(result.coef, device) @ _f64(X, device).T       # (L, m)
+        if offset is not None:
+            # glmnet's newoffset, added before exp for "response".
+            eta = eta + _f64(offset, device).reshape(-1)[None, :]
+        if type == "response":
+            eta = torch.exp(eta)
+        elif type == "class":
+            raise ValueError("cox predictions are 'link' (linear "
+                             "predictor) or 'response' (relative risk)")
+        return eta[0] if squeeze else eta
+    beta0 = _f64(result.intercept if svm else result.beta0, device)
     if svm:
         # 'link' = decision values; 'class' maps back through the original
         # labels (the hinge losses have no probability scale).

@@ -4,9 +4,11 @@
 glmnet's ``print.glmnet`` table for a finished gaussian or GLM
 ``PathResult``: the number of exactly nonzero coefficients and the
 fraction of the null deviance explained at every grid point.  Float64 on
-the device of the fit's coefficients, numpy out; the deviances are the CV
-losses of :mod:`admm_tpu_torch.models.cv` (``GLMFamily.cv_loss``), so
-``1 - dev/nulldev`` agrees with what the ``cv_*_path`` drivers score.
+the device of the fit's coefficients, numpy out; the deviances are the
+CV losses of :mod:`admm_tpu_torch.models.cv` (``GLMFamily.cv_loss``), so
+``1 - dev/nulldev`` agrees with what the ``cv_*_path`` drivers score.  A
+``CoxPathResult`` is scored by its partial likelihood, in float64 numpy
+on the host.
 """
 from __future__ import annotations
 
@@ -73,8 +75,11 @@ def path_table(result, X, y, *, family="gaussian",
     deviance).  ``weights``: the observation weights of the fit; the
     deviances become weighted sums.
     """
+    from .models.cox import CoxPathResult
     from .models.lasso import PathResult
 
+    if isinstance(result, CoxPathResult):
+        return _cox_table(result, X, y, weights)
     if not isinstance(result, PathResult):
         raise TypeError(f"path_table does not take "
                         f"{result.__class__.__name__} results in "
@@ -119,6 +124,34 @@ def path_table(result, X, y, *, family="gaussian",
     dev_ratio = (nulldev - dev) / nulldev if nulldev > 0 else \
         np.zeros_like(dev)
     return PathTable(df=df, dev_ratio=dev_ratio, lambdas=lams,
+                     nulldev=nulldev)
+
+
+def _cox_table(result, X, y, weights):
+    """glmnet's print for family='cox': deviance -2 log partial
+    likelihood (``models.cox._breslow_pl``, float64 numpy on the host),
+    the null deviance at beta = 0; ``y`` is an (n, 2) [time, event] or
+    (n, 3) [start, stop, event] array."""
+    from .models.cox import _breslow_pl
+
+    yz = np.asarray(to_numpy(y), np.float64)
+    if yz.ndim == 2 and yz.shape[1] == 3:
+        start, t, d = yz[:, 0], yz[:, 1], yz[:, 2]
+    elif yz.ndim == 2 and yz.shape[1] == 2:
+        (t, d), start = (yz[:, 0], yz[:, 1]), None
+    else:
+        raise ValueError("cox path_table needs y as an (n, 2) [time, "
+                         "event] or (n, 3) [start, stop, event] array")
+    X = np.asarray(to_numpy(X), np.float64)
+    w = None if weights is None else np.asarray(to_numpy(weights))
+    coef = np.asarray(to_numpy(result.coef), np.float64)
+    dev = -2.0 * _breslow_pl(X, t, d, coef, w, None, None, start)
+    nulldev = float(-2.0 * _breslow_pl(X, t, d, np.zeros((1, coef.shape[1])),
+                                       w, None, None, start)[0])
+    dev_ratio = ((nulldev - dev) / nulldev if nulldev > 0
+                 else np.zeros_like(dev))
+    return PathTable(df=np.count_nonzero(coef, axis=1), dev_ratio=dev_ratio,
+                     lambdas=np.asarray(to_numpy(result.lambdas), np.float64),
                      nulldev=nulldev)
 
 

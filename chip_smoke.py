@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
 Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector,
 the penalized GLM paths (logistic, Huber, Poisson), cross-validation and
-prediction, and the families that run on the engines.
+prediction, the families that run on the engines, and the glmnet front
+end.
 
     python3 chip_smoke.py
 
@@ -35,7 +36,12 @@ Phases, in order:
    (:func:`second_families_phase`: the square-root lasso, SLOPE, SVM,
    multi-task, nuclear-norm, multinomial and quantile paths and their CV
    drivers, none of which may launch a kernel, each against its float64
-   run on the card);
+   run on the card) and "the last families and glmnet"
+   (:func:`last_families_phase`: the Cox, graphical-lasso, robust-PCA and
+   matrix-completion paths and their CV drivers, which launch nothing, and
+   ``glmnet``/``cv_glmnet``/``big_glm``, which launch their drivers'
+   kernels exactly; the glasso scan against batch, the logdet proxes and
+   the exact against the partial SVT, timed);
 5. kernel and plain times, and each entry point end to end: median of 5
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
@@ -536,8 +542,8 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
     ``lasso_path`` (scan and batch) and a traced LAD fit, the active-set
     path's three modes at ``ACTIVESET_SIZES``, the
     group lasso (tall and wide), the fused and zero-sum lasso, the relaxed
-    lasso, and the five new CV drivers at 2000 x 200 (10 folds; the
-    relaxed CV at 10000 x 1000).  Every call runs with the launch counts
+    lasso, and the five new CV drivers at 2000 x 200 (10 folds, 5 for the
+    group, fused and generalized lasso; the relaxed CV at 10000 x 1000).  Every call runs with the launch counts
     at 0 just before it and read just after (they add to the kernels'
     ``launches``), and is held against the port's float64 run on the
     card at ``PATH_BAR``.  Times: the kernel paths' medians of 3 CUDA-event
@@ -779,16 +785,20 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
     nd, pd = Xd.shape
     gd = np.arange(pd) // 10
     C2 = np.vstack([np.ones(pd), np.r_[1.0, -1.0, np.zeros(pd - 2)]])
+    # The three slowest CVs (0.6-1.3 s a fold on the engine) run 5 folds, so
+    # that the script stays within its time.
+    kfolds = 5
     cv_calls = [
-        (f"cv_group_lasso_path(Xd, yd, groups of 10)  [{nd} x {pd} x 100]",
-         lambda **kw: t.cv_group_lasso_path(Xd, yd, gd, nfolds=nfolds, **kw),
+        (f"cv_group_lasso_path(Xd, yd, groups of 10, nfolds={kfolds})  "
+         f"[{nd} x {pd} x 100]",
+         lambda **kw: t.cv_group_lasso_path(Xd, yd, gd, nfolds=kfolds, **kw),
          {}),
-        (f"cv_fused_lasso_path(Xd, yd)  [{nd} x {pd} x 50]",
-         lambda **kw: t.cv_fused_lasso_path(Xd, yd, nfolds=nfolds, **kw), {}),
-        (f"cv_gen_lasso_path(Xd, yd, D = 1st differences, weights)  [{nd} x "
-         f"{pd} x 50]",
+        (f"cv_fused_lasso_path(Xd, yd, nfolds={kfolds})  [{nd} x {pd} x 50]",
+         lambda **kw: t.cv_fused_lasso_path(Xd, yd, nfolds=kfolds, **kw), {}),
+        (f"cv_gen_lasso_path(Xd, yd, D = 1st differences, weights, "
+         f"nfolds={kfolds})  [{nd} x {pd} x 50]",
          lambda **kw: t.cv_gen_lasso_path(
-             Xd, yd, t.difference_matrix(pd, 1), nfolds=nfolds,
+             Xd, yd, t.difference_matrix(pd, 1), nfolds=kfolds,
              weights=np.random.default_rng(123).uniform(0.5, 1.5, nd), **kw),
          {}),
         (f"cv_zerosum_lasso_path(Xd, yd)  [{nd} x {pd} x 50]",
@@ -921,9 +931,9 @@ def second_families_phase(torch, smoke, record):
     ``multitask_lasso_path`` and ``multitask_nuclear_path``,
     ``multinomial_lasso_path`` at the JAX package's benchmark sizes
     (:func:`second_problems`), then their CV drivers with 10 folds, and
-    ``cv_quantile_lasso_path`` with 3 (its full fit is the quantile path's
-    cell).  None may launch a kernel: every call runs with the launch
-    counts at 0 just before it and read just after.  Each is held against
+    ``cv_quantile_lasso_path`` with 3 at maxit 10000 (its full fit is the
+    quantile path's cell).  None may launch a kernel: every call runs with
+    the launch counts at 0 just before it and read just after.  Each is held against
     the port's float64 run on the card at ``PATH_BAR``, the quantile path
     as LAD is (the pinball objective within ``LAD_OBJ_BAR``; coefficients
     within ``QUANTILE_COEF_BAR``); times are first calls on the host
@@ -1054,13 +1064,16 @@ def second_families_phase(torch, smoke, record):
     # path the user calls, held as LAD is (pinball objective within
     # LAD_OBJ_BAR of float64) with the coefficients at QUANTILE_COEF_BAR;
     # the curves at QUANTILE_CV_BAR.  Some lanes run to maxit (20000), so
-    # each solve takes the same 20000 iterations: 3 folds, not 10.
-    qfolds = 3
-    label = (f"cv_quantile_lasso_path(Xq, yq, tau={taus})  [{Xq.shape[0]} "
-             f"x {Xq.shape[1]} x 30, {qfolds} folds]")
+    # each solve takes maxit iterations (2 ms each, whatever the number of
+    # lanes): 3 folds, not 10, and maxit 10000, not the default 20000, in
+    # both precisions.  (With 2 folds the curves part by 2.1e-3.)
+    qfolds, qmaxit = 3, 10000
+    label = (f"cv_quantile_lasso_path(Xq, yq, tau={taus}, maxit={qmaxit})  "
+             f"[{Xq.shape[0]} x {Xq.shape[1]} x 30, {qfolds} folds]")
     out, ms = counted(label, lambda: t.cv_quantile_lasso_path(
-        Xq, yq, tau=taus, nfolds=qfolds), {})
-    ref = t.cv_quantile_lasso_path(Xq, yq, tau=taus, nfolds=qfolds, **f64)
+        Xq, yq, tau=taus, nfolds=qfolds, maxit=qmaxit), {})
+    ref = t.cv_quantile_lasso_path(Xq, yq, tau=taus, nfolds=qfolds,
+                                   maxit=qmaxit, **f64)
     fit, fit_ref = out["fit"], ref["fit"]
     gap = held(f"{label} full fit", fit, fit_ref, bar=QUANTILE_COEF_BAR)
     ratio = float(np.max(pinball_objective(fit, Xq, yq)
@@ -1102,6 +1115,323 @@ def second_families_phase(torch, smoke, record):
               f"{ms['pava']:.3f} ms (median of 5, CUDA events)")
     print(f"  phase 'the second families': {time.perf_counter() - t_phase:.1f}"
           " s on the host clock", flush=True)
+
+
+# The last families: the JAX package's own float32 bars where they are
+# larger than PATH_BAR.  The graphical lasso: its float32 paths by the two
+# x-updates within 5e-3 (tests/test_glasso.py::test_newton_eigh_xupdates_
+# agree); the Cox CV curves: the JAX package's bar between its two CV
+# protocols, rtol 5e-4 (tests/test_cox.py).
+GLASSO_BAR = 5e-3
+COX_CV_BAR = 5e-4
+# The glasso scan-against-batch comparison: paired calls per size.
+GLASSO_PAIRS = 3
+
+
+def last_problems(seed=123):
+    """The last families' problems, after the JAX package's benchmark
+    generators (benchmarks/run_baselines.py), each from its own
+    ``default_rng(seed)``: the Cox path's (``bench_multi``: the 2000 x 200
+    multinomial design, times exponential with rate exp(0.5 X b), 50%
+    events), the Cox CV's (``bench_cv``: 10 signed slopes, 70% events),
+    the graphical lasso's 2000 x p normal data (``bench_round4``, p = 200
+    and 500), PCP's rank-5 500 x 500 and 2000 x 2000 matrices with 5% of
+    the entries corrupted by +-10 (``bench_round4``), and for matrix
+    completion and the PCP CV, which have no benchmark row, the 500 x 500
+    matrices with 20% of the entries unobserved."""
+    out = {}
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(2000, 200)).astype(np.float32)
+    BC = np.zeros((200, 5), np.float32)
+    BC[:10] = rng.uniform(-1.5, 1.5, (10, 5))
+    eta = X @ BC
+    pr = np.exp(eta - eta.max(axis=1, keepdims=True))
+    pr /= pr.sum(axis=1, keepdims=True)
+    for pi in pr:                       # the multinomial labels' draws
+        rng.choice(5, p=pi)
+    t = rng.exponential(np.exp(-(X @ BC[:, 0] * 0.5)))
+    out["cox"] = (X, t, (rng.uniform(size=2000) < 0.5).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(2000, 200))
+    b = np.zeros(200)
+    b[:10] = rng.uniform(0.5, 1.5, 10) * rng.choice([-1, 1], 10)
+    t = rng.exponential(np.exp(-(X @ b)))
+    out["cox_cv"] = (X.astype(np.float32), t,
+                     (rng.uniform(size=2000) < 0.7).astype(np.float32))
+    for p in (200, 500):
+        out[f"glasso{p}"] = np.random.default_rng(seed).normal(
+            size=(2000, p)).astype(np.float32)
+    for m, scale in ((500, 1.0), (2000, 1.0 / np.sqrt(5))):
+        rng = np.random.default_rng(seed)
+        L0 = rng.normal(size=(m, 5)) @ rng.normal(size=(5, m)) * scale
+        S0 = np.zeros((m, m))
+        hit = rng.uniform(size=S0.shape) < 0.05
+        S0[hit] = 10 * rng.choice([-1.0, 1.0], size=hit.sum())
+        out[f"rpca{m}"] = (L0 + S0).astype(np.float32)
+        if m == 500:
+            out["low_rank500"] = L0.astype(np.float32)
+            out["observed500"] = rng.uniform(size=S0.shape) >= 0.2
+    return out
+
+
+def last_families_phase(torch, smoke, record, X, y):
+    """Phase 4e, "the last families and glmnet": ``cox_lasso_path`` (2000
+    x 200, 30 lambdas, scan) and ``cv_cox_path`` (5 folds, 20 lambdas,
+    onepass), ``glasso_path`` (p = 200 scan and batch, p = 500 scan) and
+    ``cv_glasso_path`` (p = 200), ``rpca`` (500 x 500 exact SVT, 2000 x 2000
+    partial SVT at rank 5), ``matrix_complete`` and ``cv_rpca`` (500 x
+    500, 20% unobserved; 3 lambdas, 3 folds) at the JAX package's
+    benchmark sizes (:func:`last_problems`), none of which may launch a
+    kernel; then the
+    glmnet front end on the kernel paths: ``glmnet`` gaussian on the
+    flagship problem (the tall scan kernel once), binomial and huber on
+    ``logistic_problem(2000, 200, 30)`` (the GLM kernel once each),
+    ``cv_glmnet`` gaussian on the flagship (the tall batch kernel 11
+    times) and ``big_glm`` gaussian at 2000 x 200 (the tall scan kernel
+    once), each equal to its family driver's result on the same inputs to
+    the bit.  Every call runs with the launch counts at 0 just before it
+    and read just after, and is held against the port's float64 run on
+    the card (``PATH_BAR``, or ``GLASSO_BAR``/``COX_CV_BAR``); times are
+    first calls on the host clock.  Then the glasso path's scan against
+    its batch mode (``GLASSO_PAIRS`` paired calls at p = 200 and 500), and
+    one lane each of the two logdet proxes and of the exact and partial
+    SVT (CUDA events)."""
+    from types import SimpleNamespace
+
+    import admm_tpu_torch as t
+    from admm_tpu_torch.models import glasso as glasso_mod
+    from admm_tpu_torch.models import rpca as rpca_mod
+
+    print("phase: the last families and glmnet", flush=True)
+    t_phase = time.perf_counter()
+    counted = partial(counted_call, torch, smoke, record)
+    f64 = dict(dtype=torch.float64)
+    P = last_problems()
+
+    def line(label, out, ms, gap, extra=""):
+        nit = to_np(out.niter).reshape(-1)
+        print(f"  {label}: first call {ms:.1f} ms (host clock), niter total "
+              f"{int(nit.sum())} max {int(nit.max())}, max gap to f64 "
+              f"{gap:.3e}{extra}", flush=True)
+
+    def curve(label, out, ref, bar):
+        rel = float(np.max(np.abs(out.cvm - ref.cvm) / np.abs(ref.cvm)))
+        grid = np.asarray(ref.lambdas)
+        i = int(np.argmin(np.abs(grid - out.lambda_min)))
+        j = int(np.argmin(np.abs(grid - ref.lambda_min)))
+        tie = abs(ref.cvm[i] - ref.cvm[j]) <= 1e-5 * abs(ref.cvm[j])
+        smoke.check(np.isfinite(out.cvm).all()
+                    and out.cvm.shape == ref.cvm.shape,
+                    f"{label}: finite curves")
+        smoke.check(rel <= bar, f"{label}: cvm within rtol {bar} of float64 "
+                    f"(max rel gap {rel:.3e})")
+        smoke.check(i == j or tie, f"{label}: lambda_min at float64's grid "
+                    f"point ({i} vs {j}) or a cvm tie within rtol 1e-5")
+        return rel, i, j
+
+    # -- Cox. ---------------------------------------------------------------
+    Xc, tc, dc = P["cox"]
+    label = f"cox_lasso_path(Xc, t, d, nlambda=30)  [{Xc.shape[0]} x " \
+        f"{Xc.shape[1]}, scan, 50% events]"
+    call = lambda **kw: t.cox_lasso_path(Xc, tc, dc, nlambda=30, **kw)
+    out, ms = counted(label, call, {})
+    ref = call(**f64)
+    line(label, out, ms, held_to(smoke, label, out, ref, fields=("coef",)))
+    Xv, tv, dv = P["cox_cv"]
+    label = (f"cv_cox_path(Xv, t, d, nfolds=5, nlambda=20, "
+             f"cv_mode='onepass')  [{Xv.shape[0]} x {Xv.shape[1]}, 70% "
+             "events]")
+    call = lambda **kw: t.cv_cox_path(Xv, tv, dv, nfolds=5, nlambda=20,
+                                      cv_mode="onepass", seed=1, **kw)
+    out, ms = counted(label, call, {})
+    ref = call(**f64)
+    held_to(smoke, f"{label} full fit", out.fit, ref.fit, fields=("coef",))
+    rel, i, j = curve(label, out, ref, COX_CV_BAR)
+    sf = t.survfit_cox(out, Xv, tv, dv, Xnew=Xv[:4])
+    smoke.check(bool(np.isfinite(sf.surv).all()) and sf.surv.shape[1] == 4
+                and bool(np.all(np.diff(sf.surv, axis=0) <= 0)),
+                f"{label}: survfit_cox(cv) gives finite falling curves")
+    print(f"  {label}: first call {ms:.1f} ms (host clock), cvm max rel gap "
+          f"to f64 {rel:.3e}, lambda_min index {i} (f64 {j}), full fit niter"
+          f" total {int(to_np(out.fit.niter).sum())}", flush=True)
+    del out, ref
+
+    # -- The graphical lasso. -----------------------------------------------
+    for p, modes in ((200, ("scan", "batch")), (500, ("scan",))):
+        A = P[f"glasso{p}"]
+        for mode in modes:
+            label = (f"glasso_path(A, path_mode='{mode}')  [2000 x {p}, 20 "
+                     "lambdas, newton]")
+            call = lambda mode=mode, A=A, **kw: t.glasso_path(
+                A, path_mode=mode, **kw)
+            out, ms = counted(label, call, {})
+            ref = call(**f64)
+            gap = held_to(smoke, label, out, ref, bar=GLASSO_BAR,
+                          fields=("precision",))
+            line(label, out, ms, gap, f" (bar {GLASSO_BAR})")
+            del out, ref
+    A = P["glasso200"]
+    label = "cv_glasso_path(A, nfolds=5)  [2000 x 200, 20 lambdas]"
+    call = lambda **kw: t.cv_glasso_path(A, nfolds=5, **kw)
+    out, ms = counted(label, call, {})
+    ref = call(**f64)
+    held_to(smoke, f"{label} full fit", out.fit, ref.fit, bar=GLASSO_BAR,
+            fields=("precision",))
+    rel, i, j = curve(label, out, ref, 1e-4)
+    print(f"  {label}: first call {ms:.1f} ms (host clock), cvm max rel gap "
+          f"to f64 {rel:.3e}, lambda_min index {i} (f64 {j})", flush=True)
+    del out, ref
+
+    # -- Robust PCA and matrix completion. ------------------------------------
+    rpca_kw = dict(maxit=2000, eps_abs=1e-6, eps_rel=1e-5)
+    for m, rank in ((500, None), (2000, 5)):
+        M = P[f"rpca{m}"]
+        label = (f"rpca(M, rank={rank}, maxit=2000, eps_abs=1e-6, "
+                 f"eps_rel=1e-5)  [{m} x {m}, "
+                 f"{'exact' if rank is None else 'partial'} SVT]")
+        call = lambda M=M, rank=rank, **kw: t.rpca(M, rank=rank, **rpca_kw,
+                                                   **kw)
+        out, ms = counted(label, call, {})
+        ref = call(**f64)
+        gap = held_to(smoke, label, out, ref, fields=("low_rank", "sparse"))
+        sat = "" if rank is None else \
+            f", rank_saturated {bool(out.rank_saturated)}"
+        if rank is not None:
+            smoke.check(not bool(out.rank_saturated),
+                        f"{label}: the rank bound holds at the solution")
+        line(label, out, ms, gap, sat)
+        del out, ref
+    L0, obs = P["low_rank500"], P["observed500"]
+    label = "matrix_complete(L0, observed)  [500 x 500, 20% unobserved]"
+    call = lambda **kw: SimpleNamespace(**dict(zip(
+        ("low_rank", "niter"), t.matrix_complete(L0, obs, **kw))))
+    out, ms = counted(label, call, {})
+    ref = call(**f64)
+    gap = held_to(smoke, label, out, ref, fields=("low_rank",))
+    rec = float(np.abs(to_np(out.low_rank) - L0).max() / np.abs(L0).max())
+    line(label, out, ms, gap, f", max |L - L0| / max |L0| {rec:.3e}")
+    M = P["rpca500"]
+    # Three lambdas within 1.5x of the universal 1/sqrt(500) and 3 folds:
+    # at 3x away the masked fold paths take hundreds of 30 ms SVDs each.
+    label = ("cv_rpca(M, observed, nlambda=3, lambda_scale=1.5, nfolds=3)  "
+             "[500 x 500, 20% unobserved]")
+    call = lambda **kw: t.cv_rpca(M, observed=obs, nlambda=3,
+                                  lambda_scale=1.5, nfolds=3, **rpca_kw,
+                                  **kw)
+    out, ms = counted(label, call, {})
+    ref = call(**f64)
+    held_to(smoke, f"{label} full fit", out.fit, ref.fit,
+            fields=("low_rank", "sparse"))
+    rel, i, j = curve(label, out, ref, 1e-4)
+    print(f"  {label}: first call {ms:.1f} ms (host clock), cvm max rel gap "
+          f"to f64 {rel:.3e}, lambda_min index {i} (f64 {j}), full fit niter"
+          f" {to_np(out.fit.niter).astype(int).tolist()}", flush=True)
+    del out, ref
+
+    # -- The glmnet front end on the kernel paths. --------------------------
+    Xb, yb = logistic_problem(2000, 200, 30)
+    Xg2, yg2 = make_problem(2000, 200, 20)
+    fronts = [
+        (f"glmnet(X, y, 'gaussian')  [{X.shape[0]} x {X.shape[1]}, 100 "
+         "lambdas, scan]",
+         lambda **kw: t.glmnet(X, y, "gaussian", **kw),
+         lambda: t.lasso_path(X, y), {"tall_path_scan": 1}),
+        ("glmnet(Xb, yb, 'binomial', nlambda=30)  [2000 x 200]",
+         lambda **kw: t.glmnet(Xb, yb, "binomial", nlambda=30, **kw),
+         lambda: t.logistic_lasso_path(Xb, yb, nlambda=30),
+         {"glm_batch_path": 1}),
+        ("glmnet(Xb, yb, 'huber', nlambda=30)  [2000 x 200]",
+         lambda **kw: t.glmnet(Xb, yb, "huber", nlambda=30, **kw),
+         lambda: t.huber_lasso_path(Xb, yb, nlambda=30),
+         {"glm_batch_path": 1}),
+        (f"cv_glmnet(X, y, 'gaussian')  [{X.shape[0]} x {X.shape[1]}, 100 "
+         "lambdas, 10 folds]",
+         lambda **kw: t.cv_glmnet(X, y, "gaussian", **kw),
+         lambda: t.cv_lasso_path(X, y), {"tall_path_batch": 11}),
+        ("big_glm(Xg2, yg2, 'gaussian')  [2000 x 200, lambda = 0]",
+         lambda **kw: t.big_glm(Xg2, yg2, "gaussian", **kw),
+         lambda: t.lasso_path(Xg2, yg2, lambdas=np.zeros(1), rho=1.0,
+                              lower_limits=None, upper_limits=None,
+                              intercept=True), {"tall_path_scan": 1}),
+    ]
+    for label, call, driver, want in fronts:
+        out, ms = counted(label, call, want)
+        own = driver()
+        fit, own_fit = (out.fit, own.fit) if hasattr(out, "fit") \
+            else (out, own)
+        same = all(torch.equal(getattr(fit, f), getattr(own_fit, f))
+                   for f in ("coef", "beta0", "niter"))
+        if hasattr(out, "cvm"):
+            same = same and np.array_equal(out.cvm, own.cvm)
+        smoke.check(same, f"{label}: the family driver's result to the bit")
+        ref = call(**f64)
+        gap = held_to(smoke, label, fit, ref.fit if hasattr(ref, "fit")
+                      else ref)
+        extra = ""
+        if hasattr(out, "cvm"):
+            rel, i, j = curve(label, out, ref, 1e-4)
+            extra = f", cvm max rel gap {rel:.3e}, lambda_min index {i} " \
+                f"(f64 {j})"
+        line(label, fit, ms, gap, extra)
+        del out, own, ref
+
+    # -- The glasso path: scan against batch, paired calls. -------------------
+    for p in (200, 500):
+        A = torch.as_tensor(P[f"glasso{p}"], dtype=torch.float32,
+                            device="cuda")
+        times = {"scan": [], "batch": []}
+        niter = {}
+        for k in range(GLASSO_PAIRS):
+            for mode in (("scan", "batch") if k % 2 == 0
+                         else ("batch", "scan")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = t.glasso_path(A, path_mode=mode)
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                nit = to_np(res.niter)
+                niter[mode] = (int(nit.sum()), int(nit.max()))
+        print(f"  glasso_path p = {p}, 20 lambdas, {GLASSO_PAIRS} paired "
+              f"calls (host clock, ms): scan "
+              f"{[round(v, 1) for v in times['scan']]} (niter total "
+              f"{niter['scan'][0]}), batch "
+              f"{[round(v, 1) for v in times['batch']]} (niter total "
+              f"{niter['batch'][0]}, slowest lane {niter['batch'][1]})",
+              flush=True)
+
+    # -- One lane of each prox, CUDA events. --------------------------------
+    for p in (200, 500):
+        S = glasso_mod.empirical_covariance(P[f"glasso{p}"])
+        G = torch.eye(S.shape[0], device="cuda") - S - 0.05
+        G = 0.5 * (G + G.mT)
+        rho = torch.tensor(1.0, device="cuda")
+        ms = {name: cuda_median_ms(torch, lambda fn=fn: fn(G, rho))
+              for name, fn in (("newton", glasso_mod._logdet_prox_newton),
+                               ("eigh", glasso_mod._logdet_prox_eigh))}
+        gap = gap_of(glasso_mod._logdet_prox_newton(G, rho),
+                     glasso_mod._logdet_prox_eigh(G.double(), rho.double()))
+        print(f"  logdet prox p = {p}: newton {ms['newton']:.3f} ms, eigh "
+              f"{ms['eigh']:.3f} ms (median of 5, CUDA events); newton "
+              f"float32 against eigh float64 {gap:.2e}", flush=True)
+    for m, r in ((500, 5), (2000, 5)):
+        A = torch.as_tensor(P[f"rpca{m}"], dtype=torch.float32, device="cuda")
+        V = rpca_mod._start_basis(A.shape[1], r + rpca_mod._SVT_OVERSAMPLE,
+                                  torch.float32, "cuda")
+        # The threshold at the (r + oversample + 1)-th singular value:
+        # the exact SVT's rank then fits the partial basis.
+        tau = float(torch.linalg.svdvals(A)[r + rpca_mod._SVT_OVERSAMPLE])
+        V = rpca_mod.svt_partial(A, tau, V, 8)[1]       # a warm basis
+        ms_exact = cuda_median_ms(torch, lambda: rpca_mod.svt(A, tau))
+        ms_part = cuda_median_ms(
+            torch, lambda: rpca_mod.svt_partial(A, tau, V))
+        gap = gap_of(rpca_mod.svt(A, tau), rpca_mod.svt_partial(A, tau, V)[0])
+        print(f"  SVT {m} x {m}: exact {ms_exact:.3f} ms, partial (rank "
+              f"{r} + {rpca_mod._SVT_OVERSAMPLE}, 2 power iterations, warm "
+              f"basis) {ms_part:.3f} ms (median of 5, CUDA events); gap "
+              f"{gap:.2e}", flush=True)
+    print(f"  phase 'the last families and glmnet': "
+          f"{time.perf_counter() - t_phase:.1f} s on the host clock",
+          flush=True)
 
 
 def main() -> int:
@@ -1604,6 +1934,9 @@ def main() -> int:
 
     # 4d. The second families.
     second_families_phase(torch, smoke, record)
+
+    # 4e. The last families and the glmnet front end.
+    last_families_phase(torch, smoke, record, X, y)
 
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "

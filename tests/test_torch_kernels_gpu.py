@@ -1044,3 +1044,98 @@ def test_second_families_on_the_card_launch_nothing(dev, family):
                                atol=1e-6, rtol=1e-7)
     gap = (card.niter.cpu().to(torch.int64) - host.niter).abs().max()
     assert int(gap) <= 1
+
+
+def test_newton_schulz_prox_on_the_card_f32_against_f64(dev):
+    """The graphical lasso's Newton-Schulz logdet prox in float32 on the
+    card against its float64 run: within the JAX package's float32 bar
+    for this prox against the eigh form (rel. Frobenius 5e-5,
+    tests/test_glasso.py), which TF32 products (about three decimal
+    digits) would miss by far."""
+    from admm_tpu_torch.models import glasso
+
+    rng = np.random.default_rng(12)
+    B = rng.normal(size=(200, 200))
+    G64 = torch.as_tensor(0.5 * (B + B.T), device=dev)
+    for rho in (0.05, 1.0, 64.0):
+        want = glasso._logdet_prox_newton(
+            G64, torch.tensor(rho, dtype=torch.float64, device=dev))
+        got = glasso._logdet_prox_newton(
+            G64.float(), torch.tensor(rho, dtype=torch.float32, device=dev))
+        rel = float(torch.linalg.norm(got.double() - want)
+                    / torch.linalg.norm(want))
+        assert rel < 5e-5, (rho, rel)
+
+
+LAST_FAMILIES = ["cox_lasso_path", "glasso_path", "rpca"]
+
+
+@pytest.mark.parametrize("family", LAST_FAMILIES)
+def test_last_families_on_the_card_launch_nothing(dev, family):
+    """The Cox path, the graphical lasso and robust PCA run the engine on
+    the card (no kernel launches) and equal their float64 runs on the
+    CPU: within 1e-6, niter within 1 per path point."""
+    import admm_tpu_torch as t
+
+    rng = np.random.default_rng(13)
+    X = rng.normal(size=(120, 10))
+    tt = rng.exponential(np.exp(-X[:, 0])) + 0.01
+    ev = (rng.random(120) < 0.7) * 1.0
+    M = rng.normal(size=(30, 2)) @ rng.normal(size=(2, 20))
+    M[rng.random(M.shape) < 0.05] += 5.0
+    call = {
+        "cox_lasso_path": lambda **kw: t.cox_lasso_path(X, tt, ev, nlambda=5,
+                                                        **kw),
+        "glasso_path": lambda **kw: t.glasso_path(X, nlambda=5, **kw),
+        "rpca": lambda **kw: t.rpca(M, **kw),
+    }[family]
+    kernels.reset_launch_counts()
+    card = call(device=dev, dtype=torch.float64)
+    assert not any(kernels.launch_counts().values())
+    host = call(device="cpu", dtype=torch.float64)
+    for a, b in zip(card, host):
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            assert a.device.type == "cuda"
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-6,
+                                       rtol=1e-7)
+    gap = (card.niter.cpu().to(torch.int64) - host.niter).abs().max()
+    assert int(gap) <= 1
+
+
+def test_glmnet_gaussian_launches_the_tall_scan_kernel_once(dev):
+    """``glmnet(family="gaussian")`` is ``lasso_path``'s default scan: one
+    launch of the tall scan kernel, nothing else, and the driver's own
+    result to the bit."""
+    import admm_tpu_torch as t
+
+    rng = np.random.default_rng(14)
+    X = rng.normal(size=(300, 40)).astype(np.float32)
+    y = (X[:, :5].sum(axis=1) + rng.normal(size=300)).astype(np.float32)
+    kernels.reset_launch_counts()
+    fit = t.glmnet(X, y, "gaussian", nlambda=20, device=dev)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "tall_path_scan": 1}
+    own = t.lasso_path(X, y, nlambda=20, device=dev)
+    assert torch.equal(fit.coef, own.coef)
+    assert torch.equal(fit.niter, own.niter)
+
+
+def test_svt_on_the_card_f32_against_f64(dev):
+    """The exact SVT of a float32 500 x 500 matrix on the card within 1e-4
+    of its float64 run (cuSOLVER's float32 driver alone is 2.4e-3 off),
+    and PCP in float32 on the card within one iteration of float64."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.models import rpca
+
+    rng = np.random.default_rng(15)
+    M = rng.normal(size=(500, 5)) @ rng.normal(size=(5, 500))
+    hit = rng.uniform(size=M.shape) < 0.05
+    M[hit] += 10 * rng.choice([-1.0, 1.0], size=hit.sum())
+    A = torch.as_tensor(M, device=dev)
+    got = rpca.svt(A.float(), 5.0)
+    assert got.dtype == torch.float32
+    assert float((got.double() - rpca.svt(A, 5.0)).abs().max()) < 1e-4
+    kw = dict(maxit=2000, eps_abs=1e-6, eps_rel=1e-5, device=dev)
+    n32 = int(t.rpca(M, dtype=torch.float32, **kw).niter)
+    n64 = int(t.rpca(M, dtype=torch.float64, **kw).niter)
+    assert abs(n32 - n64) <= 1, (n32, n64)
