@@ -12,10 +12,13 @@ lasso, the square-root, quantile, SLOPE, SVM, multi-task and
 multinomial paths, the graphical lasso, robust PCA and matrix completion,
 the Cox paths and their survival curves, the glmnet front end
 (``glmnet``, ``cv_glmnet``, ``big_glm``), k-fold cross-validation of all
-of these,
+of these, consensus ADMM over row blocks on one device (the 13
+``parallel_*`` drivers and the builders' ``.parallel(nthread)``,
+:mod:`admm_tpu_torch.parallel`),
 per-iteration residual traces (``trace_len``, ``.opts(trace=...)``,
-:mod:`admm_tpu_torch.diag`), and ``predict``/``coef``, the path summary and
-``assess``/``roc``/``confusion``/``c_index``.  All six of the
+:mod:`admm_tpu_torch.diag`), ``predict``/``coef``, the path summary,
+``assess``/``roc``/``confusion``/``c_index``, the fit plots
+(``fit.plot()``, :mod:`admm_tpu_torch.plotting`) and ``make_x``.  All six of the
 JAX package's Pallas TPU kernels are hand-written CUDA kernels here
 (``csrc/``, built with ``nvcc`` at first use)::
 
@@ -23,6 +26,7 @@ JAX package's Pallas TPU kernels are hand-written CUDA kernels here
     fit = admm_tpu_torch.admm_lasso(x, y).fit()          # on "cuda"
     fit = admm_tpu_torch.admm_lasso(x, y, device="cpu").fit()
     fit.beta          # sparse (p+1) x nlambda, intercepts in row 0
+    admm_tpu_torch.admm_lasso(x, y).parallel(2).fit()    # consensus ADMM
     admm_tpu_torch.admm_lad(x, y).fit().beta             # dense, intercept first
     admm_tpu_torch.admm_bp(A, b).fit().beta              # sparse (p, 1)
     admm_tpu_torch.logistic_lasso_path(x, labels).coef   # (nlambda, p) tensor
@@ -41,6 +45,7 @@ from .api import (ADMMBP, ADMMLAD, ADMMBPFit, ADMMDantzig, ADMMEnet,
                   ADMMLADFit, ADMMLasso, ADMMLassoFit, admm_bp, admm_dantzig,
                   admm_enet, admm_lad, admm_lasso)
 from .assess import assess, c_index, confusion, roc
+from .data.makex import make_x
 from .data.standardize import StdStats
 from .glmnet import big_glm, cv_glmnet, glmnet
 from .models.bp import BPResult, bp_fit, bp_fit_batch
@@ -79,6 +84,18 @@ from .models.slope import bh_sequence, slope_path
 from .models.sqrtlasso import sqrt_lasso_path
 from .models.svm import (CVSVMResult, SVMResult, cv_svm_path, svm_fit,
                          svm_path)
+from .parallel.consensus import (parallel_bp_fit,
+                                 parallel_constrained_lasso_path,
+                                 parallel_enet_path, parallel_glm_lasso_path,
+                                 parallel_group_lasso_path,
+                                 parallel_huber_lasso_path,
+                                 parallel_lasso_path,
+                                 parallel_logistic_lasso_path,
+                                 parallel_multinomial_lasso_path,
+                                 parallel_multitask_lasso_path,
+                                 parallel_poisson_lasso_path,
+                                 parallel_slope_path,
+                                 parallel_zerosum_lasso_path)
 from .predict import coef, predict
 from .summary import PathTable, deviance, format_path_table, path_table
 
@@ -110,7 +127,13 @@ __all__ = [
     "glasso_path", "cv_glasso_path", "empirical_covariance",
     "partial_correlations", "rpca", "matrix_complete", "rpca_path",
     "cv_rpca", "cox_lasso_path", "cv_cox_path", "survfit_cox", "glmnet",
-    "cv_glmnet", "big_glm",
+    "cv_glmnet", "big_glm", "make_x",
+    "parallel_lasso_path", "parallel_enet_path", "parallel_group_lasso_path",
+    "parallel_slope_path", "parallel_constrained_lasso_path",
+    "parallel_zerosum_lasso_path", "parallel_bp_fit",
+    "parallel_glm_lasso_path", "parallel_logistic_lasso_path",
+    "parallel_huber_lasso_path", "parallel_poisson_lasso_path",
+    "parallel_multinomial_lasso_path", "parallel_multitask_lasso_path",
     "predict", "coef", "path_table",
     "format_path_table", "deviance", "assess", "roc", "confusion",
     "c_index", "PathResult", "LADResult", "BPResult", "CVResult",

@@ -17,10 +17,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .interop import to_numpy
 from .models.bp import bp_fit
 from .models.dantzig import dantzig_path
 from .models.lad import lad_fit
 from .models.lasso import enet_path, lasso_path
+from .parallel.consensus import (parallel_bp_fit, parallel_enet_path,
+                                 parallel_lasso_path)
 
 
 def _check_xy(x, y):
@@ -110,9 +113,9 @@ class ADMMLassoFit(_FitResult):
                 f"niter={self.niter!r})")
 
     def plot(self, ax=None):
-        """The solution-path plot is not ported yet."""
-        raise NotImplementedError(
-            "fit.plot() is not ported to admm_tpu_torch yet")
+        """Solution-path plot (reference: R/30_admm_lasso.R:189-214)."""
+        from .plotting import plot_solution_path
+        return plot_solution_path(self.lambda_, self.beta, ax=ax)
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -121,20 +124,23 @@ def _to_numpy(t) -> np.ndarray:
 
 class ADMMLADFit(_FitResult):
     """LAD fit (reference: R/20_admm_lad.R): dense ``beta``, intercept
-    first, ``niter`` and ``trace``."""
+    first, ``niter`` and ``trace``; ``x`` and ``y`` are kept, as host
+    arrays, for the plot."""
 
-    def __init__(self, beta, niter, trace=None):
+    def __init__(self, beta, niter, x, y, trace=None):
         self.beta = np.asarray(beta)
         self.niter = int(niter)
         self.trace = _trace_array(trace)
+        self._x, self._y = to_numpy(x), to_numpy(y)
 
     def __repr__(self):
         return f"{type(self).__name__}(niter={self.niter!r})"
 
     def plot(self, ax=None):
-        """The fitted-vs-observed plot is not ported yet."""
-        raise NotImplementedError(
-            "fit.plot() is not ported to admm_tpu_torch yet")
+        """Fitted-vs-observed scatter (reference: R/20_admm_lad.R:87-100)."""
+        from .plotting import plot_fitted_vs_observed
+        fitted = self.beta[0] + self._x @ self.beta[1:]
+        return plot_fitted_vs_observed(fitted, self._y, ax=ax)
 
 
 class ADMMBPFit(_FitResult):
@@ -152,9 +158,9 @@ class ADMMBPFit(_FitResult):
         return f"{type(self).__name__}(niter={self.niter!r})"
 
     def plot(self, ax=None):
-        """The coefficient stem plot is not ported yet."""
-        raise NotImplementedError(
-            "fit.plot() is not ported to admm_tpu_torch yet")
+        """Coefficient stem plot (reference: R/10_admm_bp.R:152-163)."""
+        from .plotting import plot_stem
+        return plot_stem(np.asarray(self.beta.todense()).ravel(), ax=ax)
 
 
 class ADMMLasso:
@@ -219,15 +225,12 @@ class ADMMLasso:
         return self
 
     def parallel(self, nthread: int = 2, **kw):
-        """(reference: R/30_admm_lasso.R:99-112).  The consensus solver is
-        not ported yet: ``nthread > 1`` raises."""
+        """(reference: R/30_admm_lasso.R:99-112).  ``nthread > 1`` fits
+        by consensus ADMM over that many row blocks on the one device
+        (:mod:`admm_tpu_torch.parallel.consensus`)."""
         nthread = max(int(nthread), 1)
         if nthread >= self.x.shape[1] / 5:
             raise ValueError("nthread cannot exceed ncol(x)/5")
-        if nthread > 1:
-            raise NotImplementedError(
-                "parallel(nthread > 1), the consensus solver, is not "
-                "ported to admm_tpu_torch yet")
         self.nthread = nthread
         return self
 
@@ -289,8 +292,23 @@ class ADMMLasso:
                             res.niter.detach().cpu().numpy(),
                             trace=res.trace)
 
+    def _consensus_kwargs(self):
+        """The consensus drivers' arguments: no path mode, and glmnet's
+        per-coordinate options are refused."""
+        if any(v is not None for v in self._option_kwargs().values()):
+            raise NotImplementedError(
+                "penalty_factor / coefficient limits are not "
+                "supported by the consensus solver; use nthread=1")
+        kw = self._path_kwargs()
+        del kw["path_mode"]
+        return dict(kw, nworkers=self.nthread)
+
     def fit(self) -> ADMMLassoFit:
-        """(reference: R/30_admm_lasso.R:136-160)"""
+        """(reference: R/30_admm_lasso.R:136-160, which dispatches the
+        serial or the consensus solver on nthread)"""
+        if self.nthread > 1:
+            return self._fit_result(parallel_lasso_path(
+                self.x, self.y, **self._consensus_kwargs()))
         return self._fit_result(lasso_path(self.x, self.y,
                                            **self._option_kwargs(),
                                            **self._path_kwargs()))
@@ -329,6 +347,12 @@ class ADMMEnet(ADMMLasso):
         return self
 
     def fit(self) -> ADMMLassoFit:
+        """``parallel()`` works here too, an extension (the reference has
+        no ``admm_parenet``): the Lasso's consensus with the Enet prox."""
+        if self.nthread > 1:
+            return self._fit_result(parallel_enet_path(
+                self.x, self.y, alpha=self.alpha,
+                **self._consensus_kwargs()))
         return self._fit_result(enet_path(self.x, self.y, alpha=self.alpha,
                                           **self._option_kwargs(),
                                           **self._path_kwargs()))
@@ -411,14 +435,11 @@ class ADMMBP:
         self._eps_rel = None if v is None else float(v)
 
     def parallel(self, nthread: int = 2, **kw):
-        """(reference: R/10_admm_bp.R:66-75).  The consensus solver is
-        not ported yet: ``nthread > 1`` raises."""
-        nthread = max(int(nthread), 1)
-        if nthread > 1:
-            raise NotImplementedError(
-                "parallel(nthread > 1), the consensus solver, is not "
-                "ported to admm_tpu_torch yet")
-        self.nthread = nthread
+        """(reference: R/10_admm_bp.R:66-75).  The reference dispatches
+        ``nthread > 1`` to ``admm_parbp``, whose native side was never
+        compiled; here it is the consensus Basis Pursuit
+        (:func:`admm_tpu_torch.parallel.consensus.parallel_bp_fit`)."""
+        self.nthread = max(int(nthread), 1)
         return self
 
     def opts(self, maxit: int = 10000, eps_abs: Optional[float] = None,
@@ -452,8 +473,13 @@ class ADMMBP:
                     trace_len=self._trace_len(), device=self.device)
 
     def fit(self) -> ADMMBPFit:
-        """(reference: R/10_admm_bp.R:100-120)"""
-        res = bp_fit(self.x, self.y, **self._fit_kwargs())
+        """(reference: R/10_admm_bp.R:100-120, which dispatches the serial
+        or the consensus solver on nthread)"""
+        if self.nthread > 1:
+            res = parallel_bp_fit(self.x, self.y, nworkers=self.nthread,
+                                  **self._fit_kwargs())
+        else:
+            res = bp_fit(self.x, self.y, **self._fit_kwargs())
         return ADMMBPFit(_to_numpy(res.coef), res.niter, trace=res.trace)
 
     def __repr__(self):
@@ -489,7 +515,7 @@ class ADMMLAD(ADMMBP):
                       **self._fit_kwargs())
         beta = np.concatenate([np.atleast_1d(_to_numpy(res.beta0)),
                                _to_numpy(res.coef)])
-        return ADMMLADFit(beta, res.niter, trace=res.trace)
+        return ADMMLADFit(beta, res.niter, self.x, self.y, trace=res.trace)
 
 
 # -- the reference's five exported constructors --------------------------

@@ -6,7 +6,8 @@ The system has no weights: what crosses between ``admm_tpu`` and
 statistics (``StdStats``) and results (``PathResult``, ``LADResult``,
 ``BPResult``, ``QuantilePathResult``, ``SVMResult``, ``MTPathResult``,
 ``MNPathResult``, ``CoxPathResult``, ``GlassoResult``, ``RPCAResult``,
-``RPCAPathResult``), plus plain
+``RPCAPathResult``), the consensus solvers' resume state ``(x, y, z,
+rho)`` (a plain tuple in both packages), plus plain
 arrays such as a ridge inverse, X'y, rho, sprad or a lambda grid.  The
 two packages' types are ``NamedTuple``s with the same names and fields;
 numpy arrays are the medium.  This module never imports JAX: the
@@ -68,17 +69,16 @@ def to_numpy(t) -> Any:
     return np.asarray(t)
 
 
+def _is_consensus_state(obj) -> bool:
+    """The consensus solvers' resume state, a plain ``(x, y, z, rho)``."""
+    return type(obj) is tuple and len(obj) == 4
+
+
 def from_reference(obj, *, device=None, dtype: Optional[torch.dtype] = None):
     """A JAX-package ``ADMMState``, ``StdStats`` or result tuple as the
-    port's type of the same name.  ``dtype`` casts floating fields only."""
-    name = type(obj).__name__
-    types = _port_types()
-    if name not in types:
-        raise TypeError(f"no port type for {name}")
-    cls = types[name]
-    if tuple(obj._fields) != tuple(cls._fields):
-        raise TypeError(f"{name} fields differ: {obj._fields} vs {cls._fields}")
-
+    port's type of the same name, or the consensus state ``(x, y, z,
+    rho)`` (a plain tuple) as a tuple of tensors.  ``dtype`` casts
+    floating fields only."""
     def conv(field, v):
         if field in _HOST_FIELDS:
             return v
@@ -86,13 +86,26 @@ def from_reference(obj, *, device=None, dtype: Optional[torch.dtype] = None):
         if t is not None and dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t
+
+    if _is_consensus_state(obj):
+        return tuple(conv(None, v) for v in obj)
+    name = type(obj).__name__
+    types = _port_types()
+    if name not in types:
+        raise TypeError(f"no port type for {name}")
+    cls = types[name]
+    if tuple(obj._fields) != tuple(cls._fields):
+        raise TypeError(f"{name} fields differ: {obj._fields} vs {cls._fields}")
     return cls(*(conv(f, v) for f, v in zip(obj._fields, obj)))
 
 
 def to_reference(obj, cls):
     """A port ``ADMMState``, ``StdStats`` or result tuple as ``cls``,
     the JAX package's type of the same name, with numpy fields (which the
-    JAX functions accept as arrays)."""
+    JAX functions accept as arrays); the consensus state ``(x, y, z,
+    rho)`` with ``cls=tuple`` as a tuple of numpy arrays."""
+    if cls is tuple and _is_consensus_state(obj):
+        return tuple(to_numpy(v) for v in obj)
     if type(obj).__name__ != cls.__name__ or tuple(obj._fields) != tuple(
             cls._fields):
         raise TypeError(f"cannot convert {type(obj).__name__} to "

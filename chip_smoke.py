@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
 Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector,
 the penalized GLM paths (logistic, Huber, Poisson), cross-validation and
-prediction, the families that run on the engines, and the glmnet front
-end.
+prediction, the families that run on the engines, the glmnet front end
+and consensus ADMM.
 
     python3 chip_smoke.py
 
@@ -41,7 +41,11 @@ Phases, in order:
    matrix-completion paths and their CV drivers, which launch nothing, and
    ``glmnet``/``cv_glmnet``/``big_glm``, which launch their drivers'
    kernels exactly; the glasso scan against batch, the logdet proxes and
-   the exact against the partial SVT, timed);
+   the exact against the partial SVT, timed) and "consensus"
+   (:func:`consensus_phase`: the builders' ``.parallel(nthread)`` and the
+   ``parallel_*`` drivers, which launch nothing, each against its float64
+   consensus on the card; the flagship and wide paths against the
+   reference's ``padmm`` times; the loop op by op and as a CUDA graph);
 5. kernel and plain times, and each entry point end to end: median of 5
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
@@ -88,10 +92,13 @@ LAD_COEF_BAR, LAD_OBJ_BAR = 5e-3, 1.001   # tests/test_pallas_kernels.py
 # from its float64 one there on the CPU (and its float64 paths at eps 1e-5
 # and 1e-6 part by 7.8e-3); the pinball objective is held at LAD_OBJ_BAR.
 QUANTILE_COEF_BAR = 1e-2
-# Its CV curves: twice the JAX package's own bar between its two CV
-# protocols (rel 1e-3, tests/test_quantile.py), since the fold fits part
-# by up to 6.8e-3 in the check loss's flat directions (1.2e-3 on the H100).
-QUANTILE_CV_BAR = 2e-3
+# Its CV curves, relative to float64 (every lane runs to maxit): on the
+# CPU the JAX package's float32 CV is 5.6e-4 to 5.9e-4 from float64 over
+# four row orderings and the port's 6.9e-4 (tests/quantile_cv_gap.py);
+# the 17% between them is XLA's fused multiply-adds (PyTorch rounds each
+# operation, on the card too), not a port fault.  The bar is the port's
+# gap rounded up (it was 2e-3 before that comparison).
+QUANTILE_CV_BAR = 1e-3
 BP_Z_BAR = 1e-4                           # kernel vs plain, same file
 BP_F64_BAR = 1e-3                         # main path vs float64 engine
 BP_RECOVERY_BAR = 2.11e-3                 # the reference README's published error
@@ -1434,6 +1441,176 @@ def last_families_phase(torch, smoke, record, X, y):
           flush=True)
 
 
+# niter totals (and the slowest lambda) of the JAX package's float32
+# consensus on the CPU, one device, seed 123 (the figures that motivated
+# this phase); the port's own are printed beside them.
+JAX_CPU_NITER = {("lasso", 2): (1886, 76), ("lasso", 4): (2147, 93),
+                 ("lasso", 8): (2462, 119), ("wide", 2): (6228, 219),
+                 ("enet", 4): (1717, 58), ("group", 4): (3603, 224)}
+# The reference's published consensus times (BASELINE.md, padmm).
+PADMM_MS = {"lasso": 512.5, "wide": 5345.6}
+
+
+def chunk_sweep(torch, cons, fit, modes, reps=3):
+    """Median-of-``reps`` host-clock times of ``fit`` for each (loop,
+    chunk) of ``modes``, in turns there and back: "eager" runs the chunk
+    op by op, "graph" replays it as a CUDA graph; ``_CHUNK`` iterations
+    between two host reads."""
+    chunk, graphed = cons._CHUNK, cons._graphed
+    times = {}
+    try:
+        for mode, k in modes + modes[::-1]:
+            cons._CHUNK = k
+            cons._graphed = (graphed if mode == "graph"
+                             else lambda advance, *a: advance)
+            times.setdefault((mode, k), []).append(
+                host_median_ms(torch, fit, reps=reps)[0])
+    finally:
+        cons._CHUNK, cons._graphed = chunk, graphed
+    return times
+
+
+def consensus_phase(torch, smoke, record, X, y, Xw, yw, A, b, x0):
+    """Phase 4f, "consensus": consensus ADMM over W row blocks on the
+    card through the builders' ``.parallel(nthread)`` and the
+    ``parallel_*`` drivers: the flagship and the wide Lasso path at W = 2
+    (first call and median of 3, against the reference's published
+    ``padmm`` times), the flagship at W = 4 and 8, the Elastic Net at
+    W = 4, Basis Pursuit at W = 2, and at W = 4 the group, SLOPE and
+    zero-sum masters, the logistic, Poisson and multinomial Newton workers
+    and the multi-task rows and nuclear masters.  None may launch a
+    kernel; each is held against the port's float64 consensus at the same
+    W on the card (``PATH_BAR``; BP, against float64 at the same eps, at
+    ``BP_F64_BAR`` and ``BP_RECOVERY_BAR``).  Then the flagship at W = 2
+    by loop: op by op with a host read every iteration, and as a CUDA
+    graph of 1 and of ``_CHUNK`` iterations per host read
+    (:func:`chunk_sweep`)."""
+    from types import SimpleNamespace
+
+    import admm_tpu_torch as t
+    from admm_tpu_torch.parallel import consensus as cons
+
+    print("phase: consensus", flush=True)
+    t_phase = time.perf_counter()
+    counted = partial(counted_call, torch, smoke, record)
+    held = partial(held_to, smoke)
+    f64 = dict(dtype=torch.float64)
+    n, p = X.shape
+    P = second_problems()
+    Xs, ys = P["sqrt"]
+    Xm, Ym = P["multitask"]
+    Xc, yc = P["multinomial"]
+    Xg, yg = glm_problem(2000, 200)
+
+    def as_path(fit):
+        """An ADMMLassoFit's sparse beta as (beta0, coef, niter) tensors."""
+        dense = fit.beta.toarray()
+        return SimpleNamespace(beta0=torch.as_tensor(dense[0]),
+                               coef=torch.as_tensor(dense[1:].T),
+                               niter=torch.as_tensor(fit.niter))
+
+    def line(label, out, ms, gap, key=None):
+        nit = to_np(out.niter).astype(np.int64).reshape(-1)
+        jax = JAX_CPU_NITER.get(key)
+        print(f"  {label}: first call {ms:.1f} ms (host clock), niter total "
+              f"{int(nit.sum())}, slowest lambda {int(nit.max())}"
+              + (f" (JAX CPU float32: {jax[0]}, {jax[1]})" if jax else "")
+              + f", {ms / max(int(nit.sum()), 1):.3f} ms per iteration with "
+              f"set-up, max gap to f64 {gap:.3e}", flush=True)
+
+    calls = [
+        (f"admm_lasso(X, y).parallel(2).fit()  [{n} x {p} x 100, W = 2]",
+         lambda: as_path(t.admm_lasso(X, y).parallel(2).fit()),
+         lambda: t.parallel_lasso_path(X, y, nworkers=2, **f64),
+         ("lasso", 2)),
+        *[(f"parallel_lasso_path(X, y, nworkers={W})  [{n} x {p} x 100]",
+           partial(t.parallel_lasso_path, X, y, nworkers=W),
+           partial(t.parallel_lasso_path, X, y, nworkers=W, **f64),
+           ("lasso", W)) for W in (4, 8)],
+        (f"admm_lasso(Xw, yw).parallel(2).fit()  [{Xw.shape[0]} x "
+         f"{Xw.shape[1]} x 100, W = 2, Woodbury]",
+         lambda: as_path(t.admm_lasso(Xw, yw).parallel(2).fit()),
+         lambda: t.parallel_lasso_path(Xw, yw, nworkers=2, **f64),
+         ("wide", 2)),
+        (f"admm_enet(X, y).penalty(alpha=0.6).parallel(4).fit()  [{n} x {p} "
+         "x 100]",
+         lambda: as_path(t.admm_enet(X, y).penalty(alpha=0.6).parallel(4)
+                         .fit()),
+         lambda: t.parallel_enet_path(X, y, alpha=0.6, nworkers=4, **f64),
+         ("enet", 4)),
+        (f"parallel_group_lasso_path(X, y, groups of 10, nworkers=4)  "
+         f"[{n} x {p} x 100]",
+         lambda **kw: t.parallel_group_lasso_path(X, y, np.arange(p) // 10,
+                                                  nworkers=4, **kw),
+         None, ("group", 4)),
+        (f"parallel_slope_path(Xs, ys, nworkers=4, nlambda=30)  "
+         f"[{Xs.shape[0]} x {Xs.shape[1]}]",
+         lambda **kw: t.parallel_slope_path(Xs, ys, nworkers=4, nlambda=30,
+                                            **kw), None, None),
+        (f"parallel_zerosum_lasso_path(Xs, ys, nworkers=4, nlambda=30)  "
+         f"[{Xs.shape[0]} x {Xs.shape[1]}]",
+         lambda **kw: t.parallel_zerosum_lasso_path(
+             Xs, ys, nworkers=4, nlambda=30, **kw), None, None),
+        ("parallel_logistic_lasso_path(Xg, yg, nworkers=4, nlambda=30)  "
+         "[2000 x 200, fixed Hessian]",
+         lambda **kw: t.parallel_logistic_lasso_path(
+             Xg, yg["logistic"], nworkers=4, nlambda=30, **kw), None, None),
+        ("parallel_poisson_lasso_path(Xg, yg, nworkers=4, nlambda=30)  "
+         "[2000 x 200, exact Hessian]",
+         lambda **kw: t.parallel_poisson_lasso_path(
+             Xg, yg["poisson"], nworkers=4, nlambda=30, **kw), None, None),
+        ("parallel_multinomial_lasso_path(Xc, yc, nworkers=4, nlambda=30)  "
+         "[2000 x 200, C = 5]",
+         lambda **kw: t.parallel_multinomial_lasso_path(
+             Xc, yc, nworkers=4, nlambda=30, **kw), None, None),
+        *[(f"parallel_multitask_lasso_path(Xm, Ym, nworkers=4, "
+           f"penalty='{pen}')  [{Xm.shape[0]} x {Xm.shape[1]} x K = 8 x 50]",
+           partial(t.parallel_multitask_lasso_path, Xm, Ym, nworkers=4,
+                   penalty=pen), None, None) for pen in ("rows", "nuclear")],
+    ]
+    for label, call, ref_call, key in calls:
+        out, ms = counted(label, call, {})
+        ref = ref_call() if ref_call is not None else call(**f64)
+        gap = held(label, out, ref)
+        line(label, out, ms, gap, key)
+        del out, ref
+    # -- Basis Pursuit by consensus (the reference's never-built parbp). ---
+    label = (f"admm_bp(A, b).parallel(2).fit()  [{A.shape[0]} x "
+             f"{A.shape[1]}, signal 0, W = 2]")
+    out, ms = counted(label, lambda: t.admm_bp(A, b).parallel(2).fit(), {})
+    ref = t.parallel_bp_fit(A, b, nworkers=2, dtype=torch.float64,
+                            eps_abs=EPS_L1, eps_rel=EPS_L1)
+    coef = out.beta.toarray()[:, 0]
+    gap = float(np.abs(coef - to_np(ref.coef)).max())
+    rec = float(np.abs(coef - x0).max())
+    smoke.check(bool(np.isfinite(coef).all()) and coef.shape == x0.shape,
+                f"{label}: finite, shape")
+    smoke.check(gap <= BP_F64_BAR, f"{label}: within {BP_F64_BAR} of "
+                f"float64 ({gap:.3e})")
+    smoke.check(rec <= BP_RECOVERY_BAR, f"{label}: recovery error "
+                f"{rec:.3e} <= {BP_RECOVERY_BAR}")
+    print(f"  {label}: first call {ms:.1f} ms (host clock), niter "
+          f"{out.niter} (f64 {int(ref.niter)}), max gap to f64 {gap:.3e}, "
+          f"max |coef - true signal| {rec:.3e}", flush=True)
+    # -- End to end against the reference's padmm, and the chunk size. -----
+    for key, (Xn, yn) in (("lasso", (X, y)), ("wide", (Xw, yw))):
+        fit = lambda: t.admm_lasso(Xn, yn).parallel(2).fit()
+        ms, out = host_median_ms(torch, fit, reps=3)
+        print(f"  admm_lasso().parallel(2).fit() {Xn.shape[0]} x "
+              f"{Xn.shape[1]}: {ms:.1f} ms, median of 3 (host clock, "
+              f"_CHUNK = {cons._CHUNK}; reference padmm {PADMM_MS[key]} ms), "
+              f"{ms / int(out.niter.sum()):.3f} ms per iteration", flush=True)
+    times = chunk_sweep(torch, cons, lambda: t.admm_lasso(X, y).parallel(2)
+                        .fit(), [("eager", 1), ("graph", 1),
+                                 ("graph", cons._CHUNK)])
+    print("  flagship at W = 2 by loop (median of 3 each, in turns there and "
+          "back): " + ", ".join(f"{m} _CHUNK = {k}: "
+                                + ", ".join(f"{v:.1f}" for v in vs) + " ms"
+                                for (m, k), vs in times.items()), flush=True)
+    print(f"  phase 'consensus': {time.perf_counter() - t_phase:.1f} s on "
+          "the host clock", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1937,6 +2114,9 @@ def main() -> int:
 
     # 4e. The last families and the glmnet front end.
     last_families_phase(torch, smoke, record, X, y)
+
+    # 4f. Consensus ADMM.
+    consensus_phase(torch, smoke, record, X, y, Xw, yw, A, B[0], X0[0])
 
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "

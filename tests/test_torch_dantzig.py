@@ -185,7 +185,8 @@ def test_dantzig_builder_validates_like_reference(tall, case):
 ])
 def test_dantzig_options_not_ported_raise(tall, option):
     """What is not ported raises by name; the traced path is ported and
-    must record one trace per lambda."""
+    must record one trace per lambda, and ``fit.plot()`` must draw the
+    path."""
     X, y = tall
     t = admm_tpu_torch
     builder = t.admm_dantzig(X, y, device="cpu")
@@ -207,6 +208,15 @@ def test_dantzig_options_not_ported_raise(tall, option):
         res = calls[option]()
         assert res.trace.shape[1:] == (8, 5)
         assert np.isfinite(np.asarray(res.trace)[:, 0]).any()
+        return
+    if option == "fit_plot":
+        import matplotlib
+        matplotlib.use("Agg")
+        from matplotlib import pyplot as plt
+
+        ax = calls[option]()
+        assert ax.get_title() == "Solution path"
+        plt.close(ax.figure)
         return
     match = ("not supported for the Dantzig selector"
              if option.startswith("builder_") and option != "builder_trace"

@@ -1139,3 +1139,114 @@ def test_svt_on_the_card_f32_against_f64(dev):
     n32 = int(t.rpca(M, dtype=torch.float32, **kw).niter)
     n64 = int(t.rpca(M, dtype=torch.float64, **kw).niter)
     assert abs(n32 - n64) <= 1, (n32, n64)
+
+
+CONSENSUS_DRIVERS = ["lasso_tall", "lasso_wide", "enet", "group", "slope",
+                     "zerosum", "bp", "logistic", "poisson", "multinomial",
+                     "multitask_nuclear"]
+
+
+def _consensus_call(driver):
+    """A small seeded problem for each consensus driver."""
+    import admm_tpu_torch as t
+
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(203, 24))
+    b = np.zeros(24)
+    b[:5] = rng.normal(size=5)
+    eta = X @ b
+    y = 1.0 + eta + 0.5 * rng.normal(size=203)
+    Xw = rng.normal(size=(60, 90))
+    yw = Xw[:, :6] @ rng.normal(size=6) + 0.3 * rng.normal(size=60)
+    A = rng.normal(size=(30, 90)) / np.sqrt(30)
+    x0 = np.zeros(90)
+    x0[[4, 40, 77]] = [1.0, -1.5, 0.7]
+    Y = np.stack([eta, -eta, 0.5 * eta], axis=1) + rng.normal(size=(203, 3))
+    cls = np.argmax(np.stack([eta, -eta, 0 * eta], axis=1)
+                    + rng.gumbel(size=(203, 3)), axis=1)
+    counts = rng.poisson(np.exp(0.3 * np.clip(eta, -3, 3))) * 1.0
+    return {
+        "lasso_tall": lambda **kw: t.parallel_lasso_path(
+            X, y, nworkers=4, nlambda=8, **kw),
+        "lasso_wide": lambda **kw: t.parallel_lasso_path(
+            Xw, yw, nworkers=2, nlambda=8, **kw),
+        "enet": lambda **kw: t.parallel_enet_path(
+            X, y, nworkers=3, alpha=0.6, nlambda=8, **kw),
+        "group": lambda **kw: t.parallel_group_lasso_path(
+            X, y, np.arange(24) // 4, nworkers=4, nlambda=6, **kw),
+        "slope": lambda **kw: t.parallel_slope_path(X, y, nworkers=4,
+                                                    nlambda=6, **kw),
+        "zerosum": lambda **kw: t.parallel_zerosum_lasso_path(
+            X, y, nworkers=4, nlambda=6, **kw),
+        "bp": lambda **kw: t.parallel_bp_fit(A, A @ x0, nworkers=2, **kw),
+        "logistic": lambda **kw: t.parallel_logistic_lasso_path(
+            X, (eta > 0) * 1.0, nworkers=4, nlambda=5, **kw),
+        "poisson": lambda **kw: t.parallel_poisson_lasso_path(
+            X, counts, nworkers=4, nlambda=5, **kw),
+        "multinomial": lambda **kw: t.parallel_multinomial_lasso_path(
+            X, cls, nworkers=4, nlambda=5, **kw),
+        "multitask_nuclear": lambda **kw: t.parallel_multitask_lasso_path(
+            X, Y, nworkers=2, nlambda=5, penalty="nuclear", **kw),
+    }[driver]
+
+
+@pytest.mark.parametrize("driver", CONSENSUS_DRIVERS)
+def test_consensus_on_the_card_launches_nothing_and_equals_the_cpu(dev,
+                                                                   driver):
+    """The consensus drivers in float64 on the card: no kernel launches,
+    and the CPU run's coefficients within 1e-8, niter within 1 per
+    lambda."""
+    call = _consensus_call(driver)
+    kernels.reset_launch_counts()
+    card = call(device=dev, dtype=torch.float64)
+    assert not any(kernels.launch_counts().values())
+    host = call(device="cpu", dtype=torch.float64)
+    assert card.coef.device.type == "cuda"
+    np.testing.assert_allclose(card.coef.cpu().numpy(), host.coef.numpy(),
+                               atol=1e-8, rtol=1e-7)
+    gap = (card.niter.cpu().to(torch.int64) - host.niter).abs().max()
+    assert int(gap) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_consensus_chunked_loop_equals_one_read_per_iteration_on_the_card(
+        dev, dtype, monkeypatch):
+    """One host read per ``_CHUNK`` iterations on the card: the same bits,
+    niter and trace rows as a read every iteration (``_CHUNK = 1``)."""
+    from admm_tpu_torch.parallel import consensus
+
+    call = _consensus_call("lasso_wide")
+    chunked = call(device=dev, dtype=dtype, trace_len=64)
+    assert consensus._CHUNK > 1
+    monkeypatch.setattr(consensus, "_CHUNK", 1)
+    single = call(device=dev, dtype=dtype, trace_len=64)
+    for f in ("coef", "beta0", "niter"):
+        assert torch.equal(getattr(chunked, f), getattr(single, f)), f
+    assert torch.equal(torch.nan_to_num(chunked.trace, nan=-1.0),
+                       torch.nan_to_num(single.trace, nan=-1.0))
+
+
+@pytest.mark.parametrize("driver", ["lasso_tall", "lasso_wide", "group",
+                                    "logistic", "multinomial"])
+def test_consensus_graph_equals_the_eager_loop_on_the_card(dev, driver,
+                                                           monkeypatch):
+    """The chunk as a CUDA graph runs the eager loop's kernels in its
+    order: the same coefficients and niter (bits, except the group
+    prox's atomic segment sums), in float32 and traced."""
+    from admm_tpu_torch.parallel import consensus
+
+    call = _consensus_call(driver)
+    kw = dict(device=dev, dtype=torch.float32, trace_len=32)
+    graphed = call(**kw)
+    monkeypatch.setattr(consensus, "_graphed", lambda advance, *a: advance)
+    eager = call(**kw)
+    if driver == "group":
+        np.testing.assert_allclose(graphed.coef.cpu().numpy(),
+                                   eager.coef.cpu().numpy(), atol=1e-5)
+        assert int((graphed.niter - eager.niter).abs().max()) <= 1
+        return
+    for f in ("coef", "beta0", "niter"):
+        assert torch.equal(getattr(graphed, f), getattr(eager, f)), f
+    if graphed.trace is not None:     # the multinomial result has none
+        assert torch.equal(torch.nan_to_num(graphed.trace, nan=-1.0),
+                           torch.nan_to_num(eager.trace, nan=-1.0))

@@ -307,9 +307,11 @@ def test_builders_validate_like_reference(lad_data, bp_data, case):
     "lad_builder_trace", "lad_fit_plot",
 ])
 def test_options_not_ported_raise(lad_data, bp_data, option):
-    """``data_mesh``, ``parallel`` and ``plot`` raise by name; the traced
-    solves are ported and must record a trace (their parity with the JAX
-    package is ``tests/test_torch_trace.py``)."""
+    """``data_mesh`` raises by name; the traced solves are ported and must
+    record a trace (their parity with the JAX package is
+    ``tests/test_torch_trace.py``), ``admm_bp().parallel(2)`` sets the
+    consensus solver (``tests/test_torch_consensus.py``) and ``plot``
+    draws (``tests/test_torch_plotting.py``)."""
     X, y = lad_data
     A, B, _ = bp_data
     t = admm_tpu_torch
@@ -342,6 +344,19 @@ def test_options_not_ported_raise(lad_data, bp_data, option):
         assert res.trace.shape == (rows, 5)
         nrec = int((~np.isnan(np.asarray(res.trace[:, 0]))).sum())
         assert nrec == min(int(res.niter), rows)
+        return
+    if option == "bp_builder_parallel":
+        assert calls[option]().nthread == 2
+        return
+    if option.endswith("_plot"):
+        import matplotlib
+        matplotlib.use("Agg")
+        from matplotlib import pyplot as plt
+
+        ax = calls[option]()
+        assert ax.get_title() == {"bp_fit_plot": "Basis Pursuit solution",
+                                  "lad_fit_plot": "LAD fit"}[option]
+        plt.close(ax.figure)
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[option]()

@@ -165,10 +165,11 @@ def test_tensor_input_stays_on_its_device(tall):
 ])
 def test_options_not_ported_raise(tall, wide, option, monkeypatch):
     """What is not ported raises by name; glmnet's per-coordinate options,
-    dfmax/pmax, the adaptive lasso, the traced solves and the active set
-    are ported now and must run (their parity is
-    ``tests/test_torch_lasso_options.py``, ``test_torch_trace.py`` and
-    ``test_torch_activeset.py``)."""
+    dfmax/pmax, the adaptive lasso, the traced solves, the active set,
+    ``.parallel()`` and ``fit.plot()`` are ported now and must run (their
+    parity is ``tests/test_torch_lasso_options.py``,
+    ``test_torch_trace.py``, ``test_torch_activeset.py``,
+    ``test_torch_consensus.py`` and ``test_torch_plotting.py``)."""
     X, y = tall
     ones = np.ones(X.shape[1])
     path = lambda **kw: admm_tpu_torch.lasso_path(X, y, device="cpu", **kw)
@@ -207,6 +208,16 @@ def test_options_not_ported_raise(tall, wide, option, monkeypatch):
 
     monkeypatch.setattr(lasso_mod, "_ACTIVESET_AUTO_P", Xw.shape[1])
     if option in _PORTED_OPTIONS:
+        if option == "fit_plot":
+            import matplotlib
+            matplotlib.use("Agg")
+            from matplotlib import pyplot as plt
+
+            ax = calls[option]()
+            assert ax.lines and all(np.isfinite(line.get_xydata()).all()
+                                    for line in ax.lines)
+            plt.close(ax.figure)
+            return
         res = calls[option]()
         if isinstance(res, admm_tpu_torch.ADMMLasso):
             res = res.fit()
@@ -224,7 +235,7 @@ _PORTED_OPTIONS = {"penalty_factor", "lower_limits", "upper_limits",
                    "exclude", "dfmax", "pmax", "adaptive_lasso_path",
                    "builder_penalty_factor", "builder_limits", "trace_len",
                    "activeset", "activeset_auto", "builder_trace",
-                   "builder_activeset"}
+                   "builder_activeset", "builder_parallel", "fit_plot"}
 
 
 def test_builder_validates_like_reference(tall):
