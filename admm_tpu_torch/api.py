@@ -60,12 +60,12 @@ def _check_xy(x, y):
 def _sparse_beta(beta0, coef):
     """Pack a dense (nlambda, p) path and its intercepts into the
     reference's sparse (p+1) x nlambda layout, intercept in row 0
-    (reference: src/Lasso.cpp:22-30, :91-92)."""
-    from scipy import sparse
+    (reference: src/Lasso.cpp:22-30, :91-92), with the native host packer
+    where it builds (:mod:`admm_tpu_torch._native`)."""
+    from ._native import pack_beta_csc
 
-    beta0 = np.atleast_1d(beta0.detach().cpu().numpy().astype(np.float64))
-    coef = np.atleast_2d(coef.detach().cpu().numpy().astype(np.float64))
-    return sparse.csc_matrix(np.concatenate([beta0[:, None], coef], axis=1).T)
+    return pack_beta_csc(beta0.detach().cpu().numpy(),
+                         coef.detach().cpu().numpy())
 
 
 def _trace_array(trace):

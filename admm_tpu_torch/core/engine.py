@@ -124,11 +124,15 @@ def warm_start(state: ADMMState, lam) -> ADMMState:
     ``adj_c ~ 0``, which would pin the next lambda in permanent restart
     mode with stale extrapolation points and can satisfy the Boyd test
     falsely on a period-2 oscillation.
+
+    The scalars take the shape of ``rho``: 0-d for one solve, ``(T,)``
+    for a state with a leading lane axis (every lane at ``lam``).
     """
-    dtype, dev = state.rho.dtype, state.rho.device
-    f = lambda s: torch.as_tensor(s, dtype=dtype, device=dev)
+    rho = state.rho
+    f = lambda s: torch.full_like(rho, s)
     return state._replace(
-        lam=f(lam),
+        lam=torch.as_tensor(lam, dtype=rho.dtype, device=rho.device)
+        .expand(rho.shape).contiguous(),
         adj_z=state.z,
         adj_y=state.y,
         adj_a=f(1.0),
@@ -137,8 +141,8 @@ def warm_start(state: ADMMState, lam) -> ADMMState:
         eps_dua=f(0.0),
         r_pri=f(BIG_RESID),
         r_dua=f(BIG_RESID),
-        it=torch.zeros((), dtype=torch.int32, device=dev),
-        done=torch.zeros((), dtype=torch.bool, device=dev),
+        it=torch.zeros_like(state.it),
+        done=torch.zeros_like(state.done),
     )
 
 

@@ -82,6 +82,16 @@ def _conlasso_setup(Xs, ys, C, d, lam_first, rho0):
     return Minv, Sinv, Xty, rho
 
 
+def _conlasso_engine(Xs, ys, C, d, lam_first, rho0):
+    """(cold state, solver, report :func:`_support_values`)."""
+    p = Xs.shape[1]
+    Minv, Sinv, Xty, rho = _conlasso_setup(Xs, ys, C, d, lam_first, rho0)
+    solve = make_fadmm_solver(_conlasso_ops(Minv, Xty, C, Sinv, d, p),
+                              adapt_rho=False)
+    zp = torch.zeros((p,), dtype=Xs.dtype, device=Xs.device)
+    return make_state(zp, zp, zp, rho, lam_first), solve, _support_values
+
+
 def _support_values(st):
     """The SUPPORT of z (exact zeros, the package-wide sparsity contract)
     with the VALUES of x (the constraint-feasible iterate): ``C b = d``
@@ -109,18 +119,14 @@ def _conlasso_path_dev(X, y, C, d, nlambda, lambda_min_ratio, user_lams,
     else:
         lams = user_lams
     ilams = lams * n
-    Minv, Sinv, Xty, rho = _conlasso_setup(Xs, ys, C, d, ilams[0], rho0)
-    solve = make_fadmm_solver(_conlasso_ops(Minv, Xty, C, Sinv, d, p),
-                              adapt_rho=False)
+    st0, solve, report = _conlasso_engine(Xs, ys, C, d, ilams[0], rho0)
     if path_mode == "batch":
-        st = _batched_cold_states(ilams.shape[0], p, rho, ilams)
+        st = _batched_cold_states(ilams.shape[0], p, st0.rho, ilams)
         st = make_batched_solver(solve)(st, maxit, eps_abs, eps_rel)
-        coefs, niter, traces = _support_values(st), st.it, None
+        coefs, niter, traces = report(st), st.it, None
     else:
-        zp = torch.zeros((p,), dtype=X.dtype, device=X.device)
-        st0 = make_state(zp, zp, zp, rho, ilams[0])
-        _, coefs, niter, traces = _scan_path(st0, solve, _support_values,
-                                             ilams, maxit, eps_abs, eps_rel,
+        _, coefs, niter, traces = _scan_path(st0, solve, report, ilams,
+                                             maxit, eps_abs, eps_rel,
                                              trace_len)
     beta0 = mean_y - coefs @ mean_x
     return PathResult(lambdas=lams, beta0=beta0, coef=coefs, niter=niter,

@@ -135,16 +135,22 @@ def _genlasso_setup(Xs, ys, D, lam_first, rho0):
     return Minv, Xty, rho
 
 
-def _solve_genlasso_scan(Xs, ys, D, ilams, rho0, maxit, eps_abs, eps_rel,
-                         trace_len=None):
+def _genlasso_engine(Xs, ys, D, lam_first, rho0):
+    """(cold state, solver, reported iterate x) of the scan path."""
     p, m = Xs.shape[1], D.shape[0]
-    Minv, Xty, rho = _genlasso_setup(Xs, ys, D, ilams[0], rho0)
+    Minv, Xty, rho = _genlasso_setup(Xs, ys, D, lam_first, rho0)
     solve = make_fadmm_solver(_genlasso_ops(D, Minv, Xty), adapt_rho=False)
     zp = torch.zeros((p,), dtype=Xs.dtype, device=Xs.device)
     zm = torch.zeros((m,), dtype=Xs.dtype, device=Xs.device)
-    st0 = make_state(zp, zm, zm, rho, ilams[0], aux=zm)
-    _, coefs, niter, traces = _scan_path(st0, solve, lambda st: st.x, ilams,
-                                         maxit, eps_abs, eps_rel, trace_len)
+    st0 = make_state(zp, zm, zm, rho, lam_first, aux=zm)
+    return st0, solve, (lambda st: st.x)
+
+
+def _solve_genlasso_scan(Xs, ys, D, ilams, rho0, maxit, eps_abs, eps_rel,
+                         trace_len=None):
+    st0, solve, report = _genlasso_engine(Xs, ys, D, ilams[0], rho0)
+    _, coefs, niter, traces = _scan_path(st0, solve, report, ilams, maxit,
+                                         eps_abs, eps_rel, trace_len)
     return coefs, niter, traces
 
 

@@ -15,8 +15,11 @@ a prox swap on the Lasso's engines:
   the same block prox at step ``lambda w_g/(rho gamma)``.
 
 The all-zero threshold is ``lambda0 = max_g ||X_g'y||_2 / w_g``.  The JAX
-package's ``segment_sum``/``segment_max`` over the group ids become
-``index_add_``/``scatter_reduce`` over a (p,) int64 group-index tensor.
+package's ``segment_sum`` over the group ids becomes a product with the
+(p, G) 0/1 membership matrix (``index_add_`` adds with atomics on the
+card, in an order that changes from run to run; a product adds in one
+order, so a path has the same bits every run, and a resumed checkpoint
+those of its uninterrupted run), and ``segment_max`` a ``scatter_reduce``.
 No kernel: the group prox is not the kernels' scalar-lane prox, so every
 path runs on the engines, warm-started in sequence as in the JAX package.
 """
@@ -35,10 +38,16 @@ from .lasso import (PathResult, _as_tensor, _linspace, _not_ported,
                     _scan_path, _tall_ops, _tall_setup, _wide_ops)
 
 
-def _segment_sum(v, groups, G: int):
-    """Per-group sums over the last axis: ``(..., p) -> (..., G)``."""
-    out = torch.zeros(v.shape[:-1] + (G,), dtype=v.dtype, device=v.device)
-    return out.index_add_(-1, groups, v)
+def _membership(groups, G: int, dtype):
+    """The (p, G) 0/1 matrix of which group each coordinate is in."""
+    return (groups[:, None] == torch.arange(G, device=groups.device)).to(
+        dtype)
+
+
+def _segment_sum(v, member):
+    """Per-group sums over the last axis, ``(..., p) -> (..., G)``, as a
+    product with the membership matrix (module docstring)."""
+    return v @ member
 
 
 def _group_prox_fn(groups, weights, l1_ratio: float = 0.0):
@@ -50,14 +59,13 @@ def _group_prox_fn(groups, weights, l1_ratio: float = 0.0):
     ||.||_2]`` has the exact prox "coordinate soft-threshold, THEN group
     shrink" (the l1 prox keeps each group's direction).
     """
-    G = int(weights.shape[0])
+    member = _membership(groups, int(weights.shape[0]), weights.dtype)
 
     def prox(v, t):
         if l1_ratio > 0.0:
             v = soft_threshold(v, t * l1_ratio)
         t_g = t * (1.0 - l1_ratio)
-        gn = torch.sqrt(torch.clamp(_segment_sum(v * v, groups, G),
-                                    min=1e-30))
+        gn = torch.sqrt(torch.clamp(_segment_sum(v * v, member), min=1e-30))
         shrink = torch.clamp(1.0 - t_g * weights / gn, min=0.0)  # (..., G)
         return v * shrink[..., groups]
 
@@ -109,7 +117,8 @@ def _gl_lambda0(Xs, ys, groups, weights, l1_ratio: float = 0.0):
     is exact at a = 0 and a = 1."""
     G = int(weights.shape[0])
     Xty = Xs.mT @ ys
-    gn = torch.sqrt(_segment_sum(Xty * Xty, groups, G))
+    gn = torch.sqrt(_segment_sum(Xty * Xty, _membership(groups, G,
+                                                         Xty.dtype)))
     zeros = torch.zeros_like(gn)
     if l1_ratio <= 0.0:
         return torch.max(torch.where(

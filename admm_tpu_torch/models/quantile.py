@@ -219,15 +219,22 @@ def _quantile_path_dev(X, y, taus, nlambda, lambda_min_ratio, user_lams,
         niter = torch.stack(its).reshape(T, L)
         if bufs:
             traces = torch.stack(bufs).reshape(T, L, trace_len, 5)
+    beta0, coef = _quantile_recover(coefs, intercept, sd_x, sd_y, mean_x,
+                                    mean_y)
+    return QuantilePathResult(taus=taus, lambdas=lams, beta0=beta0,
+                              coef=coef, niter=niter, trace=traces)
+
+
+def _quantile_recover(coefs, intercept, sd_x, sd_y, mean_x, mean_y):
+    """``(beta0, coef)`` on the original scale of ``(..., q)`` solver
+    coefficients (the free intercept first when fitted)."""
     if intercept:
         a, slopes = coefs[..., 0], coefs[..., 1:]
         coef = slopes / sd_x * sd_y
-        beta0 = mean_y + sd_y * a - torch.sum(coef * mean_x, dim=-1)
-    else:
-        coef = coefs / sd_x * sd_y
-        beta0 = torch.zeros(coef.shape[:-1], dtype=dtype, device=dev)
-    return QuantilePathResult(taus=taus, lambdas=lams, beta0=beta0,
-                              coef=coef, niter=niter, trace=traces)
+        return mean_y + sd_y * a - torch.sum(coef * mean_x, dim=-1), coef
+    coef = coefs / sd_x * sd_y
+    return torch.zeros(coef.shape[:-1], dtype=coef.dtype,
+                       device=coef.device), coef
 
 
 def quantile_lasso_path(X, y, *, tau=0.5, lambdas=None, nlambda: int = 30,

@@ -95,6 +95,12 @@ def relaxed_lasso_path(X, y, *, gammas=(0.0, 0.25, 0.5, 0.75, 1.0),
     w = None if w is None else _as_tensor(w, dtype, X.device).reshape(-1)
     refit_beta0, refit_coef = _masked_refits(
         X, y, masks, w, standardize_x=standardize, intercept=intercept)
+    return _blend(gam, res, refit_beta0, refit_coef)
+
+
+def _blend(gam, res, refit_beta0, refit_coef) -> RelaxedPathResult:
+    """The affine (gamma, lambda) grid of the lasso path ``res`` and its
+    support refits."""
     g = gam[:, None, None]
     coef = g * res.coef[None] + (1.0 - g) * refit_coef[None]
     beta0 = (gam[:, None] * res.beta0[None]

@@ -248,11 +248,16 @@ def _rpca_path_dev(M0, lams, rho0, maxit, eps_abs, eps_rel, mask=None,
                                       power_iters)
     _, LS, niter, _ = _scan_path(st0, solve, report, lams, maxit, eps_abs,
                                  eps_rel)
+    return _rpca_path_result(lams, LS, niter)
+
+
+def _rpca_path_result(lams, LS, niter):
+    """The path result of the stacked ``(k, 2, m, n)`` reports."""
     L, S = LS[:, 0], LS[:, 1]
     # Numerical rank and support size at the dtype-scaled tolerance.
     sv = torch.linalg.svdvals(L)                          # (k, min(m, n))
-    tol = (torch.max(sv, dim=1, keepdim=True).values * max(M0.shape)
-           * torch.finfo(M0.dtype).eps * 10)
+    tol = (torch.max(sv, dim=1, keepdim=True).values * max(L.shape[1:])
+           * torch.finfo(L.dtype).eps * 10)
     return RPCAPathResult(lambdas=lams, low_rank=L, sparse=S,
                           rank=torch.sum(sv > tol, dim=1),
                           nnz=torch.sum(S != 0, dim=(1, 2)), niter=niter)

@@ -239,34 +239,47 @@ def _sqrt_concomitant_batch(Xs, ys, lams, rho0, maxit, eps_abs, eps_rel):
     return report(st), st.it
 
 
+def _sqrt_concomitant_scan_setup(Xs, ys, lam_top, rho0):
+    """The warm-started path's start and its advance: ``(carry0,
+    advance)`` with ``carry = (state, sigma)`` and ``advance(carry, lams,
+    maxit, eps_abs, eps_rel) -> (carry, coefs, niter)`` over a run of
+    the grid (the one-shot scan and the checkpointed driver's chunks)."""
+    n = Xs.shape[0]
+    sqrt_n = math.sqrt(n)
+    sigma0 = l2norm(ys) / sqrt_n
+    sig_floor = 1e-10 * sigma0
+    solve, st0_maker, report, _ = _sqrt_inner_engine(
+        Xs, ys, n * lam_top * sigma0, rho0)
+    not_done = torch.zeros((), dtype=torch.bool, device=Xs.device)
+
+    def advance(carry, lams, maxit, eps_abs, eps_rel):
+        st, sigma = carry
+        coefs, niter = [], []
+        for lam in lams:
+            st = st._replace(it=torch.zeros_like(st.it))
+            for _ in range(_OUTER_MAXIT):
+                st = _rearm(st, n * lam * sigma, not_done)
+                st = solve(st, maxit, eps_abs, eps_rel)
+                sn = _sigma_of(Xs, ys, report(st), sqrt_n, sig_floor)
+                conv = ((torch.abs(sn - sigma) <= eps_rel * sn + eps_abs)
+                        | (st.it >= maxit))
+                sigma = sn
+                if bool(conv):
+                    break
+            coefs.append(report(st))
+            niter.append(st.it)
+        return (st, sigma), torch.stack(coefs), torch.stack(niter)
+
+    return (st0_maker(None, n * lam_top * sigma0), sigma0), advance
+
+
 def _sqrt_concomitant_scan(Xs, ys, lams, rho0, maxit, eps_abs, eps_rel):
     """The warm-started path: sigma AND the solver state carry across
     lambdas (the reference's path protocol, reference:
     src/Lasso.cpp:97-124); a lambda's niter is its total of inner
     iterations over its sigma steps."""
-    n = Xs.shape[0]
-    sqrt_n = math.sqrt(n)
-    sigma = l2norm(ys) / sqrt_n
-    sig_floor = 1e-10 * sigma
-    solve, st0_maker, report, _ = _sqrt_inner_engine(
-        Xs, ys, n * lams[0] * sigma, rho0)
-    st = st0_maker(None, n * lams[0] * sigma)
-    not_done = torch.zeros((), dtype=torch.bool, device=Xs.device)
-    coefs, niter = [], []
-    for lam in lams:
-        st = st._replace(it=torch.zeros_like(st.it))
-        for _ in range(_OUTER_MAXIT):
-            st = _rearm(st, n * lam * sigma, not_done)
-            st = solve(st, maxit, eps_abs, eps_rel)
-            sn = _sigma_of(Xs, ys, report(st), sqrt_n, sig_floor)
-            conv = ((torch.abs(sn - sigma) <= eps_rel * sn + eps_abs)
-                    | (st.it >= maxit))
-            sigma = sn
-            if bool(conv):
-                break
-        coefs.append(report(st))
-        niter.append(st.it)
-    return torch.stack(coefs), torch.stack(niter)
+    carry0, advance = _sqrt_concomitant_scan_setup(Xs, ys, lams[0], rho0)
+    return advance(carry0, lams, maxit, eps_abs, eps_rel)[1:]
 
 
 def _sqrt_prepare(X, y, weights, *, standardize_x, intercept):

@@ -103,27 +103,37 @@ def _svm_setup(X, ysign, intercept, rho0, Cs):
     return A, Minv, rho, d
 
 
-def _svm_path_dev(X, ysign, Cs, obs_w, rho0, maxit, eps_abs, eps_rel, *,
-                  loss, intercept, path_mode, trace_len=None):
-    n, p = X.shape
+def _svm_engine(X, ysign, Cs, obs_w, loss, intercept, rho0):
+    """(cold state, solver, reported iterate v = [w, (b)]) of the scan
+    path; rho comes from the whole C grid."""
+    n = X.shape[0]
     dtype, dev = X.dtype, X.device
     A, Minv, rho, d = _svm_setup(X, ysign, intercept, rho0, Cs)
     solve = make_fadmm_solver(_svm_ops(A, Minv, loss, obs_w, n, d),
                               adapt_rho=False)
+    zn = torch.zeros((n,), dtype=dtype, device=dev)
+    st0 = make_state(torch.zeros((d,), dtype=dtype, device=dev), zn, zn, rho,
+                     Cs[0], aux=zn)
+    return st0, solve, (lambda st: st.x)
+
+
+def _svm_path_dev(X, ysign, Cs, obs_w, rho0, maxit, eps_abs, eps_rel, *,
+                  loss, intercept, path_mode, trace_len=None):
+    n, p = X.shape
+    dtype, dev = X.dtype, X.device
+    st0, solve, report = _svm_engine(X, ysign, Cs, obs_w, loss, intercept,
+                                     rho0)
     traces = None
     if path_mode == "batch":
         k = Cs.shape[0]
-        st = _batched_cold_states(k, d, rho, Cs, aux_dim=n)
+        st = _batched_cold_states(k, st0.x.shape[0], st0.rho, Cs, aux_dim=n)
         zn = torch.zeros((k, n), dtype=dtype, device=dev)
         st = st._replace(z=zn, y=zn, adj_z=zn, adj_y=zn)
         st = make_batched_solver(solve)(st, maxit, eps_abs, eps_rel)
         vs, niter = st.x, st.it
     else:
-        zn = torch.zeros((n,), dtype=dtype, device=dev)
-        st0 = make_state(torch.zeros((d,), dtype=dtype, device=dev), zn, zn,
-                         rho, Cs[0], aux=zn)
-        _, vs, niter, traces = _scan_path(st0, solve, lambda st: st.x, Cs,
-                                          maxit, eps_abs, eps_rel, trace_len)
+        _, vs, niter, traces = _scan_path(st0, solve, report, Cs, maxit,
+                                          eps_abs, eps_rel, trace_len)
     if intercept:
         coefs, b = vs[:, :p], vs[:, p]
     else:

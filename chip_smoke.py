@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
 Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector,
 the penalized GLM paths (logistic, Huber, Poisson), cross-validation and
-prediction, the families that run on the engines, the glmnet front end
-and consensus ADMM.
+prediction, the families that run on the engines, the glmnet front end,
+consensus ADMM, and the checkpointed drivers and the profiler.
 
     python3 chip_smoke.py
 
@@ -45,7 +45,11 @@ Phases, in order:
    (:func:`consensus_phase`: the builders' ``.parallel(nthread)`` and the
    ``parallel_*`` drivers, which launch nothing, each against its float64
    consensus on the card; the flagship and wide paths against the
-   reference's ``padmm`` times; the loop op by op and as a CUDA graph);
+   reference's ``padmm`` times; the loop op by op and as a CUDA graph)
+   and "diagnostics" (:func:`diag_phase`: the 17 checkpointed drivers
+   whole, stopped and resumed, to the bit, on full-size problems; the
+   native host packer; a profiler trace that must hold the tall kernels;
+   the memory snapshot);
 5. kernel and plain times, and each entry point end to end: median of 5
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
@@ -69,6 +73,7 @@ outside a checkout of the repository, or when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -1611,6 +1616,356 @@ def consensus_phase(torch, smoke, record, X, y, Xw, yw, A, b, x0):
           "the host clock", flush=True)
 
 
+# The checkpointed flagship's chunk.
+DIAG_CHUNK = 10
+
+
+def diag_problems(X, y):
+    """The checkpointed families' problems: the full-size ones that the
+    earlier phases build (the flagship X, y; :data:`DANTZIG_SHAPE`'s;
+    :func:`glm_problem`'s; :func:`second_problems`' and
+    :func:`last_problems`'), and for the quantile path alone the 50 x 5
+    corner of its CPU parity test's regression (tests/test_torch_checkpoint_
+    families.py), from ``default_rng(123)``: its engine runs 1-1.5 ms an
+    iteration on the card and up to 20000 iterations a lambda, so one run
+    at 2000 x 200 would take tens of seconds and three of them the
+    phase's budget."""
+    second, last = second_problems(), last_problems()
+    rng = np.random.default_rng(123)
+    Xq = rng.normal(size=(120, 12))
+    bq = rng.uniform(size=12) * (rng.uniform(size=12) < 0.5)
+    yq = 1.5 + Xq @ bq + 0.3 * rng.normal(size=120)
+    Xg, yg = glm_problem(2000, 200)
+    return dict(flagship=(X, y), dantzig=make_problem(*DANTZIG_SHAPE[:2], 20),
+                glm=(Xg, yg), quantile=(Xq[:50, :5], yq[:50]),
+                **{k: second[k] for k in ("sqrt", "svm", "multitask",
+                                          "multinomial")},
+                **{k: last[k] for k in ("cox", "glasso500", "rpca500",
+                                        "rpca2000")})
+
+
+def diag_cases(t, diag, P):
+    """The 15 family drivers' cases on :func:`diag_problems`' ``P``:
+    (label, driver, its positional arguments, its options, the one-shot
+    path (``**kw`` -> result) whose grid it is given, the grid's field,
+    the fields held to the bit and to the bar, the family's bar).  The
+    one-shot path runs on its own grid of a few points (``nlambda``,
+    ``nC``); the driver gets that grid (``grid`` None: the options hold
+    it) and cuts it into three chunks."""
+    from admm_tpu_torch.models.genlasso import difference_matrix
+    from admm_tpu_torch.models.glm import binomial, poisson
+
+    X, y = P["flagship"]
+    Xd, yd = P["dantzig"]
+    Xg, yg = P["glm"]
+    Xs, ys = P["sqrt"]
+    Xv, yv = P["svm"]
+    Xm, Ym = P["multitask"]
+    Xc, yc = P["multinomial"]
+    Xx, tx, dx = P["cox"]
+    Xq, yq = P["quantile"]
+    groups = np.arange(X.shape[1]) // 10
+    D = difference_matrix(Xd.shape[1], 1)
+    C0 = np.ones((1, X.shape[1]))
+    tau, qlams = np.array([0.3, 0.7]), np.array([0.05, 0.02])
+    rpca_kw = dict(maxit=2000, eps_abs=1e-6, eps_rel=1e-5)
+    lam, coef = "lambdas", ("coef", "beta0")
+    return [
+        ("dantzig", diag.checkpointed_dantzig_path, (Xd, yd), {},
+         lambda **kw: t.dantzig_path(Xd, yd, nlambda=12, **kw), lam, coef,
+         PATH_BAR),
+        ("group lasso (groups of 10)", diag.checkpointed_group_lasso_path,
+         (X, y, groups), {},
+         lambda **kw: t.group_lasso_path(X, y, groups, nlambda=12, **kw),
+         lam, coef,
+         PATH_BAR),
+        ("glm binomial (fixed)", diag.checkpointed_glm_path,
+         (Xg, yg["logistic"], binomial()), dict(hessian="fixed"),
+         lambda **kw: t.glm_lasso_path(Xg, yg["logistic"], binomial(),
+                                       nlambda=12, path_mode="scan",
+                                       hessian="fixed", **kw), lam, coef,
+         PATH_BAR),
+        ("glm poisson (exact)", diag.checkpointed_glm_path,
+         (Xg, yg["poisson"], poisson()), dict(hessian="exact"),
+         lambda **kw: t.glm_lasso_path(Xg, yg["poisson"], poisson(),
+                                       nlambda=12, path_mode="scan",
+                                       hessian="exact", **kw), lam, coef,
+         PATH_BAR),
+        ("fused lasso (D = 1st differences)", diag.checkpointed_gen_lasso_path,
+         (Xd, yd, D), {},
+         lambda **kw: t.gen_lasso_path(Xd, yd, D, nlambda=12,
+                                       path_mode="scan", **kw), lam, coef,
+         2e-3),
+        ("multi-task rows", diag.checkpointed_multitask_lasso_path, (Xm, Ym),
+         {}, lambda **kw: t.multitask_lasso_path(Xm, Ym, nlambda=12,
+                                                 path_mode="scan", **kw),
+         lam, coef, PATH_BAR),
+        ("multi-task nuclear", diag.checkpointed_multitask_lasso_path,
+         (Xm, Ym), dict(penalty="nuclear"),
+         lambda **kw: t.multitask_nuclear_path(Xm, Ym, nlambda=12,
+                                               path_mode="scan", **kw),
+         lam, coef, PATH_BAR),
+        ("multinomial", diag.checkpointed_multinomial_path, (Xc, yc), {},
+         lambda **kw: t.multinomial_lasso_path(Xc, yc, nlambda=12,
+                                               path_mode="scan", **kw),
+         lam, coef, PATH_BAR),
+        ("SLOPE", diag.checkpointed_slope_path, (Xs, ys), {},
+         lambda **kw: t.slope_path(Xs, ys, nlambda=12, path_mode="scan",
+                                   **kw), lam, coef, PATH_BAR),
+        ("graphical lasso (p = 500)", diag.checkpointed_glasso_path,
+         (P["glasso500"],), {},
+         lambda **kw: t.glasso_path(P["glasso500"], nlambda=12,
+                                    path_mode="scan", **kw), lam,
+         ("precision",), GLASSO_BAR),
+        ("SVM", diag.checkpointed_svm_path, (Xv, yv), {},
+         lambda **kw: t.svm_path(Xv, yv, nC=12, path_mode="scan", **kw),
+         "Cs", ("coef", "intercept"), PATH_BAR),
+        ("Cox", diag.checkpointed_cox_path, (Xx, tx, dx), {},
+         lambda **kw: t.cox_lasso_path(Xx, tx, dx, nlambda=12, **kw), lam,
+         ("coef",), PATH_BAR),
+        ("square-root lasso", diag.checkpointed_sqrt_lasso_path, (Xs, ys),
+         {}, lambda **kw: t.sqrt_lasso_path(Xs, ys, nlambda=12,
+                                            path_mode="scan", **kw),
+         lam, coef, PATH_BAR),
+        ("zero-sum lasso", diag.checkpointed_constrained_lasso_path,
+         (X, y, C0), {},
+         lambda **kw: t.constrained_lasso_path(X, y, C0, nlambda=12,
+                                               path_mode="scan", **kw),
+         lam, coef, PATH_BAR),
+        ("relaxed lasso", diag.checkpointed_relaxed_lasso_path, (X, y), {},
+         lambda **kw: t.relaxed_lasso_path(X, y, nlambda=12, **kw), lam,
+         coef + ("refit_coef",), PATH_BAR),
+        ("quantile (2 taus x 2 lambdas, CPU test size)",
+         diag.checkpointed_quantile_lasso_path, (Xq, yq),
+         dict(tau=tau, lambdas=qlams, eps_abs=1e-4, eps_rel=1e-4),
+         lambda **kw: t.quantile_lasso_path(
+             Xq, yq, tau=tau, lambdas=qlams, eps_abs=1e-4, eps_rel=1e-4,
+             path_mode="scan", **kw), None, coef, QUANTILE_COEF_BAR),
+        ("robust PCA (exact SVT)", diag.checkpointed_rpca_path,
+         (P["rpca500"],), dict(rpca_kw),
+         lambda **kw: t.rpca_path(P["rpca500"], nlambda=3, **rpca_kw, **kw),
+         lam, ("low_rank", "sparse"), PATH_BAR),
+        ("robust PCA (partial SVT, rank 5)", diag.checkpointed_rpca_path,
+         (P["rpca2000"],), dict(rpca_kw, rank=5),
+         lambda **kw: t.rpca_path(P["rpca2000"], nlambda=3, rank=5,
+                                  **rpca_kw, **kw),
+         lam, ("low_rank", "sparse"), PATH_BAR),
+    ]
+
+
+def diag_phase(torch, smoke, record, X, y, Xw, yw):
+    """Phase 4g, "diagnostics": the checkpointed drivers
+    (``admm_tpu_torch.diag.checkpoint``) and the profiler on the card.
+
+    The checkpointed Lasso on the flagship (the 100 lambdas ``lasso_path``
+    picks, ``chunk_size=10``) and on the wide problem, and the consensus
+    Lasso on the flagship at W = 2, each run whole, stopped after 4 chunks
+    and resumed: the resumed result equals the whole run's to the bit
+    (coef, beta0, niter), the file is gone afterwards, and the path is
+    within ``PATH_BAR`` of the port's float64 one-shot path (consensus:
+    float64 consensus) on the card; each run's time, one save's time and
+    the file's size are printed.  Then the other 15 drivers on the
+    full-size problems of the earlier phases (:func:`diag_problems`,
+    :func:`diag_cases`; the quantile path alone at its CPU test's size),
+    each on the grid of a few points that its float32 one-shot path
+    picks, in three chunks, stopped after one and resumed: to the bit,
+    and within their family's bar of that one-shot path on the card.  No
+    driver may launch a kernel (they run the engines).  Then the native
+    host packer against SciPy at the flagship fit's ``beta``.  Then
+    ``diag.profile.trace`` around the flagship's ``lasso_path`` and
+    ``admm_lasso().fit()`` inside ``annotate``: the trace must hold both
+    tall kernels and the annotation; their device times are returned for
+    the kernel table.  Then ``device_memory_profile``."""
+    import json
+    import os
+    import tempfile
+
+    import admm_tpu_torch as t
+    from admm_tpu_torch import diag
+    from admm_tpu_torch.data.standardize import standardize
+    from admm_tpu_torch.diag import checkpoint as ck_mod
+    from admm_tpu_torch.models.lasso import _auto_lambdas
+
+    print("phase: diagnostics", flush=True)
+    t_phase = time.perf_counter()
+    counted = partial(counted_call, torch, smoke, record)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    saves = []
+    real_save = ck_mod.save_pytree
+
+    def timed_save(path, tree, **extras):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(path, tree, **extras)
+        saves.append(((time.perf_counter() - t0) * 1e3,
+                      os.path.getsize(path)))
+
+    def same_bits(label, a, b, fields):
+        """``fields`` may be dotted ("fit.niter")."""
+        for f in fields:
+            get = lambda r: functools.reduce(getattr, f.split("."), r)
+            smoke.check(torch.equal(get(a), get(b)),
+                        f"{label}: resumed {f} equals the whole run's to "
+                        "the bit")
+
+    def crash_resume(label, driver, args, kw, stop, fields):
+        """Whole, stopped after ``stop`` chunks, resumed: (whole run,
+        host-clock ms of the three runs)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "run.npz")
+            ms = []
+            whole, m = counted(f"{label}: whole run", lambda: driver(
+                *args, checkpoint=os.path.join(tmp, "whole.npz"), **kw), {})
+            ms.append(m)
+            out, m = counted(f"{label}: stopped after {stop} chunks",
+                             lambda: driver(*args, checkpoint=ck,
+                                            _stop_after_chunks=stop, **kw),
+                             {})
+            ms.append(m)
+            smoke.check(out is None and os.path.exists(ck),
+                        f"{label}: stopped run left its checkpoint")
+            res, m = counted(f"{label}: resumed", lambda: driver(
+                *args, checkpoint=ck, **kw), {})
+            ms.append(m)
+            smoke.check(not os.path.exists(ck),
+                        f"{label}: checkpoint deleted on completion")
+        same_bits(label, res, whole, fields)
+        return whole, ms
+
+    # -- The flagship and the wide Lasso, the consensus flagship. --------
+    def grid(Xn, yn, ratio):
+        Xs, ys, st = standardize(torch.as_tensor(Xn, **f32),
+                                 torch.as_tensor(yn, **f32),
+                                 standardize_x=True, intercept=True)
+        return _auto_lambdas(Xs, ys, st, 100, ratio, 1.0, False).cpu().numpy()
+
+    big = [
+        ("checkpointed_lasso_path flagship", diag.checkpointed_lasso_path,
+         (X, y), dict(lambdas=grid(X, y, 1e-4)),
+         lambda kw: t.lasso_path(X, y, dtype=torch.float64, **kw)),
+        ("checkpointed_lasso_path wide", diag.checkpointed_lasso_path,
+         (Xw, yw), dict(lambdas=grid(Xw, yw, 1e-2)),
+         lambda kw: t.lasso_path(Xw, yw, dtype=torch.float64, **kw)),
+        ("checkpointed_parallel_lasso_path flagship, W = 2",
+         diag.checkpointed_parallel_lasso_path, (X, y),
+         dict(lambdas=grid(X, y, 1e-4), nworkers=2),
+         lambda kw: t.parallel_lasso_path(X, y, dtype=torch.float64, **kw)),
+    ]
+    ck_mod.save_pytree = timed_save
+    try:
+        for label, driver, args, kw, ref_call in big:
+            n_, p_ = args[0].shape
+            label = f"{label}  [{n_} x {p_} x 100, chunk_size={DIAG_CHUNK}]"
+            saves.clear()
+            whole, ms = crash_resume(label, driver, args,
+                                     dict(kw, chunk_size=DIAG_CHUNK, **f32),
+                                     4, ("coef", "beta0", "niter"))
+            ref = ref_call(kw)
+            gap = held_to(smoke, label, whole, ref)
+            save_ms = [m for m, _ in saves]
+            nit = to_np(whole.niter).astype(np.int64)
+            print(f"  {label}: whole {ms[0]:.1f} ms, stopped after 4 chunks "
+                  f"{ms[1]:.1f} ms, resumed {ms[2]:.1f} ms (host clock); "
+                  f"{len(saves)} saves, median {statistics.median(save_ms):.2f}"
+                  f" ms, file {saves[-1][1]} bytes at the end; niter total "
+                  f"{int(nit.sum())}, max gap to float64 {gap:.3e}",
+                  flush=True)
+            del whole, ref
+    finally:
+        ck_mod.save_pytree = real_save
+
+    # -- The other 15 drivers at full size (the quantile path at its CPU
+    # test's). -------------------------------------------------------------
+    t_small = time.perf_counter()
+    for name, driver, args, kw, one_shot, grid_of, fields, bar in \
+            diag_cases(t, diag, diag_problems(X, y)):
+        label = f"checkpointed {name}"
+        ref = one_shot(**f32)
+        if grid_of is not None:
+            kw = {**kw, grid_of: to_np(getattr(ref, grid_of))}
+        nlam = len(kw["Cs" if grid_of == "Cs" else "lambdas"])
+        chunk = -(-nlam // 3)
+        whole, ms = crash_resume(
+            label, driver, args, {**kw, "chunk_size": chunk, **f32}, 1,
+            fields + ("fit.niter" if name == "relaxed lasso" else "niter",))
+        gap = held_to(smoke, label, whole, ref, bar=bar,
+                      what="the float32 one-shot path", fields=fields)
+        niter = to_np(getattr(whole, "fit", whole).niter)
+        print(f"  {label}  [{' x '.join(map(str, args[0].shape))}, {nlam} "
+              f"points, chunk_size={chunk}]: whole {ms[0]:.1f} ms, stopped "
+              f"after 1 chunk {ms[1]:.1f} ms, resumed {ms[2]:.1f} ms (host "
+              f"clock); niter total {int(niter.sum())} max {int(niter.max())}"
+              f", gap {gap:.3e} (bar {bar})", flush=True)
+        del whole, ref
+    print(f"  the 15 family drivers: {time.perf_counter() - t_small:.1f} s "
+          "on the host clock", flush=True)
+
+    # -- The native host packer against SciPy at the flagship fit's beta. --
+    from scipy import sparse
+
+    from admm_tpu_torch import _native
+
+    fit = t.admm_lasso(X, y).fit()
+    dense = fit.beta.toarray()                       # (p + 1, nlambda)
+    beta0, coefs = dense[0].copy(), dense[1:].T.copy()
+    smoke.check(_native.get_lib() is not None,
+                "native host packer: g++ built native/admm_host.cpp")
+    native_ms, packed = host_median_ms(
+        torch, lambda: _native.pack_beta_csc(beta0, coefs), reps=21)
+    scipy_ms, want = host_median_ms(torch, lambda: sparse.csc_matrix(
+        np.concatenate([beta0[:, None], coefs], axis=1).T), reps=21)
+    smoke.check(all(np.array_equal(getattr(packed, k), getattr(want, k))
+                    for k in ("indptr", "indices", "data")),
+                "native host packer: SciPy's CSC to the bit")
+    print(f"  pack_beta_csc {coefs.shape[0]} x {coefs.shape[1] + 1} "
+          f"({fit.beta.nnz} nonzeros): native {native_ms:.3f} ms, SciPy "
+          f"{scipy_ms:.3f} ms (median of 21, host clock)", flush=True)
+
+    # -- The profiler. -----------------------------------------------------
+    label = "diag.profile.trace(lasso_path + admm_lasso().fit(), flagship)"
+    with tempfile.TemporaryDirectory() as logdir:
+        def traced():
+            with diag.profile.trace(logdir):
+                with diag.annotate("flagship"):
+                    t.lasso_path(X, y)
+                    t.admm_lasso(X, y).fit()
+
+        _, ms = counted(label, traced,
+                        {"tall_path_scan": 1, "tall_path_batch": 1})
+        files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        smoke.check(len(files) == 1, f"{label}: one trace file ({files})")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(files[0])
+    trace_ms = {}
+    for name in ("tall_path_scan", "tall_path_batch"):
+        durs = [e["dur"] / 1e3 for e in events if e.get("cat") == "kernel"
+                and f"{name}_kernel" in e.get("name", "")]
+        smoke.check(len(durs) == 1, f"{label}: the trace holds "
+                    f"{name}_kernel once ({len(durs)})")
+        trace_ms[name] = sum(durs)
+    smoke.check(any(e.get("name") == "flagship" for e in events),
+                f"{label}: the trace holds the annotation")
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    print(f"  {label}: {ms:.1f} ms traced (host clock), {len(events)} events,"
+          f" {len(kernel_events)} device kernels, {size} bytes; "
+          + ", ".join(f"{k}_kernel {v:.3f} ms on the device"
+                      for k, v in trace_ms.items()), flush=True)
+
+    # -- The memory snapshot. ----------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "memory.pickle")
+        diag.device_memory_profile(path)
+        size = os.path.getsize(path)
+    smoke.check(size > 0, f"device_memory_profile: {size} bytes")
+    print(f"  device_memory_profile: {size} bytes; peak allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes over the script so "
+          "far", flush=True)
+    print(f"  phase 'diagnostics': {time.perf_counter() - t_phase:.1f} s on "
+          "the host clock", flush=True)
+    return trace_ms
+
+
 def main() -> int:
     import torch
 
@@ -1669,6 +2024,14 @@ def main() -> int:
     for line in (_build.build_log or "").splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    # The host packer of the builders' sparse beta (g++, first use).
+    from admm_tpu_torch import _native
+    cached = _native._SO.exists()
+    t0 = time.perf_counter()
+    smoke.check(_native.get_lib() is not None,
+                "native host packer: native/admm_host.cpp built and loaded")
+    print(f"  native host packer {'loaded from _build/' if cached else 'built'}"
+          f" in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. Kernel vs plain at the main path's shapes.
     X, y = make_problem()
@@ -2118,6 +2481,9 @@ def main() -> int:
     # 4f. Consensus ADMM.
     consensus_phase(torch, smoke, record, X, y, Xw, yw, A, B[0], X0[0])
 
+    # 4g. Checkpoints and the profiler.
+    trace_ms = diag_phase(torch, smoke, record, X, y, Xw, yw)
+
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "
           "events)", flush=True)
@@ -2130,7 +2496,10 @@ def main() -> int:
         print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms by {b_by} ({record[name]['niter_total']} "
               f"lane-iterations), library call: none (no single PyTorch "
-              f"call computes a whole solve)")
+              f"call computes a whole solve)"
+              + (f"; in the profiler's trace of the flagship path "
+                 f"{trace_ms[name]:.3f} ms on the device" if name in trace_ms
+                 else ""))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def grid_line(label, ms, iters, plan, syncs, of="the slowest lane"):

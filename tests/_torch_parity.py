@@ -53,3 +53,28 @@ def assert_cv_close(got, ref, *, rtol=1e-4):
         j = int(np.argmin(np.abs(np.asarray(ref.lambdas)
                                  - getattr(ref, key))))
         assert i == j, key
+
+
+def crash_and_resume(driver, tmp_path, *args, fields=("coef", "niter"),
+                     refuse=None, **kw):
+    """A checkpointed driver stopped after one chunk, then resumed, against
+    the same call run uninterrupted: the file exists after the crash and
+    is gone after the resume, and each of ``fields`` is equal to the bit.
+    ``refuse=(args, kw)``: a call on the crashed run's file with these
+    arguments in place of the run's (another problem or option) must be
+    refused before the resume.  Returns the uninterrupted result."""
+    import os
+
+    ck = str(tmp_path / "crash.npz")
+    assert driver(*args, checkpoint=ck, _stop_after_chunks=1, **kw) is None
+    assert os.path.exists(ck)
+    if refuse is not None:
+        with pytest.raises(ValueError, match="different"):
+            driver(*refuse[0], checkpoint=ck, **{**kw, **refuse[1]})
+    res = driver(*args, checkpoint=ck, **kw)
+    assert not os.path.exists(ck)
+    full = driver(*args, checkpoint=str(tmp_path / "whole.npz"), **kw)
+    for f in fields:
+        np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                      getattr(full, f).numpy(), err_msg=f)
+    return full
