@@ -11,12 +11,21 @@ The four modes follow the reference's ``flag = standardize + 2*intercept``:
 
 Standard deviations use glmnet's ``1/n`` convention in the centered
 two-pass form (reference: src/DataStd.h:39-53).
+
+X may be row-sharded over a mesh
+(:class:`admm_tpu_torch.parallel.mesh.Sharded`, y replicated).  X's
+moments are sums over its blocks of the blocks' partial moments, over
+the true n (no padded rows), in the two passes of the centered form; a
+block's mean enters scaled by its share of the rows, so a plain X (one
+block) gets the plain two-pass bits.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import rowsum
 
 
 class StdStats(NamedTuple):
@@ -27,14 +36,11 @@ class StdStats(NamedTuple):
     scale_y: torch.Tensor  # scalar
 
 
-def _sd_n(v: torch.Tensor, axis=None) -> torch.Tensor:
-    """Standard deviation with 1/n denominator, two-pass: the
+def _sd_n(v: torch.Tensor) -> torch.Tensor:
+    """Standard deviation of a vector with 1/n denominator, two-pass: the
     E[x^2] - E[x]^2 shortcut cancels catastrophically in float32."""
-    if axis is None:
-        c = v - torch.mean(v)
-        return torch.sqrt(torch.mean(c * c))
-    c = v - torch.mean(v, dim=axis, keepdim=True)
-    return torch.sqrt(torch.mean(c * c, dim=axis))
+    c = v - torch.mean(v)
+    return torch.sqrt(torch.mean(c * c))
 
 
 def _guard(scale: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -46,6 +52,51 @@ def _guard(scale: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     and is left unscaled."""
     floor = 8.0 * torch.finfo(scale.dtype).eps * torch.abs(ref)
     return torch.where(scale > floor, scale, torch.ones_like(scale))
+
+
+def col_mean(X) -> torch.Tensor:
+    """Column means of X, plain or row-sharded: the sum over the mesh of
+    each block's mean times its share of the rows (one block: the plain
+    mean's bits, times 1)."""
+    n = X.shape[0]
+    return rowsum(X, lambda b, sl: torch.mean(b, dim=0) * (b.shape[0] / n))
+
+
+def wcolsum(X, w, squared: bool = False) -> torch.Tensor:
+    """``sum_i w_i x_i`` (``squared``: ``sum_i w_i x_i^2``) over the rows
+    of X; of a row-sharded X, a sum over the mesh."""
+    if squared:
+        return rowsum(X, lambda b, sl: torch.sum(w[sl, None] * b * b, dim=0))
+    return rowsum(X, lambda b, sl: torch.sum(w[sl, None] * b, dim=0))
+
+
+def _x_moments(X, w, n):
+    """Column mean and 1/n standard deviation of X, plain or row-sharded
+    (``w`` the normalized weights or None), as ``(mean_fn, sd_fn)``: the
+    two passes of :func:`_sd_n`, each a sum over the blocks."""
+    if w is None:
+        def mean():
+            return col_mean(X)
+
+        def sd():
+            m = mean()
+
+            def part(b, sl):
+                c = b - m
+                return torch.mean(c * c, dim=0) * (b.shape[0] / n)
+            return torch.sqrt(rowsum(X, part))
+    else:
+        def mean():
+            return wcolsum(X, w) / n
+
+        def sd():
+            m = mean()
+
+            def part(b, sl):
+                c = b - m.unsqueeze(0)
+                return torch.sum(w[sl, None] * c * c, dim=0)
+            return torch.sqrt(rowsum(X, part) / n)
+    return mean, sd
 
 
 def standardize(X: torch.Tensor, y: torch.Tensor, *, standardize_x: bool,
@@ -63,23 +114,21 @@ def standardize(X: torch.Tensor, y: torch.Tensor, *, standardize_x: bool,
     dtype, dev = X.dtype, X.device
     n, p = X.shape
 
+    # y's moments here; X's, plain or sharded, in _x_moments.
     if weights is not None:
         w = torch.as_tensor(weights, dtype=dtype, device=dev).reshape(-1)
         w = w * (n / torch.sum(w))
 
-        def wmean(v, axis=None):
-            ww = w if axis is None or v.dim() == 1 else w[:, None]
-            return torch.sum(ww * v, dim=axis) / n
+        def wmean(v):
+            return torch.sum(w * v) / n
 
-        def wsd(v, axis=None):
-            m = wmean(v, axis=axis)
-            c = v - (m if axis is None else m.unsqueeze(axis))
-            ww = w if axis is None or v.dim() == 1 else w[:, None]
-            return torch.sqrt(torch.sum(ww * c * c, dim=axis) / n)
+        def wsd(v):
+            c = v - wmean(v)
+            return torch.sqrt(torch.sum(w * c * c) / n)
     else:
-        def wmean(v, axis=None):
-            return torch.mean(v) if axis is None else torch.mean(v, dim=axis)
-        wsd = _sd_n
+        wmean, wsd = torch.mean, _sd_n
+
+    xmean, xsd = _x_moments(X, None if weights is None else w, n)
 
     mean_x = torch.zeros((p,), dtype=dtype, device=dev)
     scale_x = torch.ones((p,), dtype=dtype, device=dev)
@@ -89,7 +138,7 @@ def standardize(X: torch.Tensor, y: torch.Tensor, *, standardize_x: bool,
     if flag == 1:
         scale_y = _guard(wsd(y), wmean(y))
         y = y / scale_y
-        scale_x = _guard(wsd(X, axis=0), wmean(X, axis=0))
+        scale_x = _guard(xsd(), xmean())
         X = X / scale_x
     elif flag == 2:
         my = wmean(y)
@@ -97,7 +146,7 @@ def standardize(X: torch.Tensor, y: torch.Tensor, *, standardize_x: bool,
         y = y - my
         scale_y = _guard(wsd(y), my)
         y = y / scale_y
-        mean_x = wmean(X, axis=0)
+        mean_x = xmean()
         X = X - mean_x
     elif flag == 3:
         my = wmean(y)
@@ -105,8 +154,8 @@ def standardize(X: torch.Tensor, y: torch.Tensor, *, standardize_x: bool,
         y = y - my
         scale_y = _guard(wsd(y), my)
         y = y / scale_y
-        mean_x = wmean(X, axis=0)
-        scale_x = _guard(wsd(X, axis=0), mean_x)
+        mean_x = xmean()
+        scale_x = _guard(xsd(), mean_x)
         X = (X - mean_x) / scale_x
 
     if weights is not None:

@@ -44,6 +44,7 @@ import torch
 from ..core.engine import col, make_admm_solver, make_state, warm_start
 from ..data.standardize import recover
 from ..data.standardize import standardize as _standardize
+from ..parallel.mesh import barrier, is_writer
 from ..models.lasso import (PathResult, _as_tensor, _scan_path, _tall_engine,
                             _wide_engine)
 
@@ -189,14 +190,18 @@ def _sync(tree) -> None:
 
 
 def _chunked_scan(st0, segment, ilams, maxit, eps_abs, eps_rel, *, fp,
-                  checkpoint, chunk_size, _stop_after_chunks=None):
+                  checkpoint, chunk_size, _stop_after_chunks=None,
+                  mesh=None):
     """The chunk/save/resume loop of every checkpointed driver.
     ``segment(st, ilams_chunk, maxit, eps_abs, eps_rel) -> (st, coefs,
     niter)`` advances the warm-start chain over one chunk, the outputs'
     leading axis the chunk's lambdas.  Returns ``(coefs, niter)`` on the
     grid's device, or None once ``_stop_after_chunks`` chunks ran (the
     fault-injection hook of the tests).  Deletes the checkpoint when the
-    path is complete."""
+    path is complete.  On a ``mesh`` of several processes the state is
+    replicated on every one; only the process of position 0 writes and
+    deletes the file, and the others wait for it (``mesh.barrier``), so
+    every process resumes from the same chunk."""
     nlam = int(ilams.shape[0])
     k_done = 0
     coefs_done, niter_done = [], []
@@ -239,16 +244,19 @@ def _chunked_scan(st0, segment, ilams, maxit, eps_abs, eps_rel, *, fp,
         niter_done.append(_host(niter))
         k_done = hi
         chunks_run += 1
-        save_pytree(checkpoint, st, fingerprint=fp,
-                    k_done=np.asarray(k_done),
-                    coefs=np.concatenate(coefs_done, axis=0),
-                    niter=np.concatenate(niter_done, axis=0))
+        if is_writer(mesh):
+            save_pytree(checkpoint, st, fingerprint=fp,
+                        k_done=np.asarray(k_done),
+                        coefs=np.concatenate(coefs_done, axis=0),
+                        niter=np.concatenate(niter_done, axis=0))
+        barrier(mesh)
 
     dev = ilams.device
     coefs = torch.from_numpy(np.concatenate(coefs_done, axis=0)).to(dev)
     niter = torch.from_numpy(np.concatenate(niter_done, axis=0)).to(dev)
-    if os.path.exists(checkpoint):
+    if is_writer(mesh) and os.path.exists(checkpoint):
         os.unlink(checkpoint)
+    barrier(mesh)
     return coefs, niter
 
 
@@ -493,22 +501,27 @@ def checkpointed_parallel_lasso_path(
     is one ``parallel/consensus.py::_run_consensus`` from it (a CUDA graph
     captured per chunk on the card).  rho is set once at the path's first
     lambda (reference: src/PADMMLasso.h:199-200) and carried through the
-    checkpoint.  ``mesh`` is not ported and raises.
+    checkpoint.  ``mesh`` deals the workers over its positions as in
+    ``parallel_lasso_path``; the state is replicated on every process at
+    each chunk boundary (the workers' rows are gathered every iteration),
+    so the file holds it whole, and a resume hands each position its own
+    workers again.
     """
-    from ..parallel.consensus import (_consensus_lasso_solver,
-                                      _partition_rows, _resolve_workers,
-                                      _run_consensus)
+    from ..parallel.consensus import (_call_device, _consensus_lasso_solver,
+                                      _device_of, _partition_rows,
+                                      _resolve_mesh, _run_consensus)
 
     chunk_size, lambdas = _validate_chunking(chunk_size, lambdas)
-    W = _resolve_workers(nworkers, mesh)
-    X, y = _xy(X, y, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(X, device))
+    X, y = _xy(X, y, dtype, _call_device(mesh, device))
     n, p = X.shape
     Xs, ys, stats = _standardize(X, y, standardize_x=standardize_x,
                                 intercept=intercept)
     lams = _grid(lambdas, dtype, X.device)
     ilams = lams * n / stats.scale_y
     Xb, yb, rows_w = _partition_rows(Xs, ys, W)
-    solver = _consensus_lasso_solver(W, rows_w >= p, float(alpha))
+    solver = _consensus_lasso_solver(W, rows_w >= p, float(alpha),
+                                     mesh=mesh)
     fp = _fingerprint(Xs, ys, ilams, alpha, maxit, eps_abs, eps_rel, rho,
                       standardize_x, intercept, _enet_scale,
                       model=f"consensus-lasso-W{W}")
@@ -524,7 +537,7 @@ def checkpointed_parallel_lasso_path(
 
     out = _chunked_scan(st0, segment, ilams, maxit, eps_abs, eps_rel, fp=fp,
                         checkpoint=checkpoint, chunk_size=chunk_size,
-                        _stop_after_chunks=_stop_after_chunks)
+                        _stop_after_chunks=_stop_after_chunks, mesh=mesh)
     if out is None:
         return None
     coefs, niter = out

@@ -35,14 +35,17 @@ from ..core.prox import l2norm, soft_threshold, sqnorm
 from ..kernels import bp as bp_kernel
 from ..linalg import chol_inverse, dot, tgram
 from .lad import _f64_class_defaults
-from .lasso import _as_tensor, _batched_cold_states, _not_ported
+from ..parallel.mesh import is_sharded
+from .lasso import _as_data, _as_tensor, _batched_cold_states
 
 
-def _use_kernel_bp(n: int, p: int, dtype) -> bool:
-    """BP kernel: float32, and the port's dispatch bound
-    ``8p + 4n <= 57600`` (``kernels/bp.py::fits``).  Any number of
-    signals, one included."""
-    return dtype == torch.float32 and bp_kernel.fits(n, p)
+def _use_kernel_bp(n: int, p: int, dtype, A=None) -> bool:
+    """BP kernel: float32, the port's dispatch bound ``8p + 4n <= 57600``
+    (``kernels/bp.py::fits``), and all of A on one device (a
+    column-sharded A takes the engine).  Any number of signals, one
+    included."""
+    return (dtype == torch.float32 and bp_kernel.fits(n, p)
+            and not is_sharded(A))
 
 
 class BPResult(NamedTuple):
@@ -89,7 +92,9 @@ def _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
     n, p = A.shape
     Winv = _bp_setup(A)
     AAAb = dot(A.mT, dot(Winv, b))                # A'(AA')^-1 b
-    K = dot(Winv, A)                              # (AA')^-1 A, n x p
+    # (AA')^-1 A, n x p; column-sharded like A.
+    K = (A.map(lambda blk: dot(Winv, blk)) if is_sharded(A)
+         else dot(Winv, A))
     solve = make_fadmm_solver(_bp_ops(A, K, n, p, lambda st: AAAb),
                               adapt_rho=False)
     zeros = torch.zeros((p,), dtype=A.dtype, device=A.device)
@@ -105,7 +110,7 @@ def _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
 def _bp_fit(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
     n, p = A.shape
     # A traced solve takes the engine, as in the JAX package.
-    if trace_len is not None or not _use_kernel_bp(n, p, A.dtype):
+    if trace_len is not None or not _use_kernel_bp(n, p, A.dtype, A):
         return _bp_fit_engine(A, b, rho, maxit, eps_abs, eps_rel, trace_len)
     # One signal is a batch of one lane: the kernel keeps the whole loop on
     # the device, where the engine reads ``done`` on the host every
@@ -150,12 +155,13 @@ def bp_fit(A, b, *, maxit: int = 10000, eps_abs: Optional[float] = None,
     the reference's double precision and takes the engine with the
     reference's eps 1e-4.  rho defaults to 5.  ``trace_len`` records the
     per-iteration residual trace, on the engine (never the kernel).
-    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
+    ``data_mesh`` shards A along its columns (the long axis p) over a
+    mesh: AA' and ``A v`` are sums over the mesh, ``A'w`` is computed per
+    block and gathered; the BP kernel holds all of A, so the engine runs.
     """
-    _not_ported(data_mesh=data_mesh)
     dtype, eps_abs, eps_rel, rho = _f64_class_defaults(dtype, eps_abs,
                                                        eps_rel, rho)
-    A = _as_tensor(A, dtype, device)
+    A = _as_data(A, dtype, device, data_mesh, dim=1)
     b = _as_tensor(b, dtype, A.device).reshape(-1)
     return _bp_fit(A, b, rho, maxit, eps_abs, eps_rel,
                    None if trace_len is None else int(trace_len))

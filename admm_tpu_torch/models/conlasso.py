@@ -187,13 +187,13 @@ def zerosum_lasso_path(X, y, **kw) -> PathResult:
 
 
 def _conlasso_fold_etas(X, y, C, d, lams, masks, fid, rho, maxit, eps_abs,
-                        eps_rel, *, intercept):
+                        eps_rel, *, intercept, mesh=None):
     """The constrained lasso's one-pass fold sweep: fold f is the weighted
     batch path with weight 0 on its rows (``masks[f]``); returns the
     (n, nlambda) own-fold linear predictors (``fid``, numpy, the clipped
     foldid)."""
     from .cv import _fold_sweep
 
-    return _fold_sweep(X, masks, fid, lambda mask: _conlasso_path_dev(
+    return _fold_sweep(X, masks, fid, mesh, lambda mask: _conlasso_path_dev(
         X, y, C, d, 2, 1e-3, lams, rho, maxit, eps_abs, eps_rel, mask,
         intercept=intercept, path_mode="batch"))

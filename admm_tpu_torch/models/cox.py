@@ -35,7 +35,8 @@ from ..core.engine import (ProblemOps, col, make_admm_solver,
 from ..core.prox import l2norm, soft_threshold, sqnorm
 from ..data.standardize import _guard
 from ..linalg import ridge_inverse
-from .lasso import (_as_tensor, _batched_cold_states, _linspace, _not_ported,
+from ..parallel.mesh import all_sum
+from .lasso import (_as_tensor, _batched_cold_states, _linspace,
                     _scan_path, validate_pf_limits)
 
 
@@ -362,20 +363,32 @@ def _cox_path(X, d, first, last, nlambda, lambda_min_ratio, user_lams, rho0,
 def _cox_fold_coefs(X, d, first, last, lams, masks, rho, maxit, eps_abs,
                     eps_rel, alpha, pf=None, limits=None, w=None, off=None,
                     seg=None, ext=None, *, standardize_x, path_mode,
-                    newton_steps):
+                    newton_steps, mesh=None):
     """The one-pass fold sweep: fold f is the weighted path with weight 0
     on its held-out rows (zero-weight rows drop out of the risk sets and
     the event terms exactly), the folds one after another.  Returns
-    (nfolds, L, p) original-scale coefficients."""
-    out = []
-    for mask in masks:
+    (nfolds, L, p) original-scale coefficients.  On a ``mesh``
+    (``fold_mesh``) this process solves its own folds
+    (``cv._own_folds``) and the zero-filled stacks are summed across the
+    positions, an exact assembly."""
+    from .cv import _own_folds
+
+    nf = masks.shape[0]
+    folds = range(nf) if mesh is None else _own_folds(nf, mesh, X.device)
+    out = [None] * nf
+    for f in folds:
+        mask = masks[f]
         wf = mask if w is None else mask * w
-        out.append(_cox_path(X, d, first, last, 2, 1e-2, lams, rho, maxit,
-                             eps_abs, eps_rel, alpha, pf, limits, wf, off,
-                             seg, ext, standardize_x=standardize_x,
-                             path_mode=path_mode,
-                             newton_steps=newton_steps).coef)
-    return torch.stack(out)
+        out[f] = _cox_path(X, d, first, last, 2, 1e-2, lams, rho, maxit,
+                           eps_abs, eps_rel, alpha, pf, limits, wf, off,
+                           seg, ext, standardize_x=standardize_x,
+                           path_mode=path_mode,
+                           newton_steps=newton_steps).coef
+    if mesh is None:
+        return torch.stack(out)
+    zero = torch.zeros_like(out[folds[0]])
+    return all_sum([torch.stack([zero if c is None else c for c in out])],
+                   mesh)
 
 
 def _check_survival(n, t_np, d_np, start):
@@ -526,7 +539,8 @@ def cv_cox_path(X, time, event, *, nfolds: int = 10, seed: int = 0,
     each training subset); folds from the shared ``_cv_foldid``.  Path
     keywords (``dtype``, ``device``, ``weights``, ``offset``, ``strata``,
     ``start``, ...) pass through to :func:`cox_lasso_path`; ``fold_mesh``
-    is not ported yet and raises ``NotImplementedError``.
+    (a mesh of :mod:`admm_tpu_torch.parallel.mesh`, nfolds a multiple of
+    its size) deals the one-pass folds over its positions.
     """
     from .cv import CVResult, _cv_foldid
 
@@ -534,7 +548,7 @@ def cv_cox_path(X, time, event, *, nfolds: int = 10, seed: int = 0,
         raise ValueError("cox type_measure must be 'deviance' or 'C'")
     if cv_mode not in ("auto", "onepass", "loop"):
         raise ValueError("cv_mode must be 'auto', 'onepass' or 'loop'")
-    _not_ported(fold_mesh=path_kw.pop("fold_mesh", None))
+    fold_mesh = path_kw.pop("fold_mesh", None)
     X = (X.detach().cpu().numpy() if isinstance(X, torch.Tensor)
          else np.asarray(X)).astype(np.float64)
     t, d = _host(time), _host(event)
@@ -579,7 +593,8 @@ def cv_cox_path(X, time, event, *, nfolds: int = 10, seed: int = 0,
             None if off is None else f(off[order]), seg, ext,
             standardize_x=path_kw.get("standardize", True),
             path_mode=path_kw.get("path_mode", "scan"),
-            newton_steps=int(path_kw.get("newton_steps", 2)))
+            newton_steps=int(path_kw.get("newton_steps", 2)),
+            mesh=fold_mesh)
         fold_coefs = fold_coefs.detach().cpu().numpy().astype(np.float64)
 
     cvraw = np.zeros((nfolds, lams.shape[0]))

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from ..interop import to_numpy
-from .lasso import (PathResult, _as_tensor, _not_ported, lasso_path,
-                    validate_pf_limits)
+from ..parallel.mesh import all_sum
+from .lasso import PathResult, _as_tensor, lasso_path, validate_pf_limits
 
 
 class CVResult(NamedTuple):
@@ -168,7 +168,7 @@ def _fold_auc(eta_all, y, foldid, nfolds, w=None):
     return cvraw, fold_w
 
 
-def _fold_sweep(X, masks, fid, solve_fold, eta_of=None):
+def _fold_sweep(X, masks, fid, mesh, solve_fold, eta_of=None):
     """The one-pass fold sweep: fold f's path is ``solve_fold(mask_f)``
     (the weighted path, weight 0 on fold f's rows); each row keeps the
     linear predictors of the fold that held it out (``fid``, a numpy
@@ -177,23 +177,50 @@ def _fold_sweep(X, masks, fid, solve_fold, eta_of=None):
     default a path's ``beta0 + X coef'``, (n_f, nlambda).  Returns the (n,
     ...) predictors on X's device.  The rows of every fold go to the device
     once, before the first solve; one fold's standardized design is alive
-    at a time."""
-    n = X.shape[0]
+    at a time.
+
+    ``mesh`` (``fold_mesh``, :mod:`admm_tpu_torch.parallel.mesh`): the
+    folds are dealt to its D positions in contiguous blocks of nfolds/D
+    and this process solves only its own positions' folds, exactly as
+    without a mesh; every row is written by the one fold that held it out,
+    so the sum over positions of the zero-filled predictors
+    (:func:`~admm_tpu_torch.parallel.mesh.all_sum`) is exact.  The
+    positions of one process share X's device."""
+    n, nf = X.shape[0], masks.shape[0]
+    folds = range(nf)
+    if mesh is not None:
+        folds = _own_folds(nf, mesh, X.device)
     order = np.argsort(fid, kind="stable")
-    edges = np.searchsorted(fid[order], np.arange(masks.shape[0] + 1))
+    edges = np.searchsorted(fid[order], np.arange(nf + 1))
     order = torch.as_tensor(order, device=X.device)
     eta = None
-    for f in range(masks.shape[0]):
+    for f in folds:
         res = solve_fold(masks[f])
         rows = order[int(edges[f]):int(edges[f + 1])]
         part = (res.beta0[None, :] + X[rows] @ res.coef.mT if eta_of is None
                 else eta_of(res, X[rows]))
         if eta is None:
-            eta = torch.empty((n,) + tuple(part.shape[1:]), dtype=part.dtype,
-                              device=X.device)
+            eta = (torch.empty if mesh is None else torch.zeros)(
+                (n,) + tuple(part.shape[1:]), dtype=part.dtype,
+                device=X.device)
         eta[rows] = part
         del res
-    return eta
+    return eta if mesh is None else all_sum([eta], mesh)
+
+
+def _own_folds(nfolds: int, mesh, device) -> list:
+    """The folds this process solves on ``mesh``: position d owns the
+    contiguous block ``[d nfolds/D, (d+1) nfolds/D)``."""
+    if nfolds % mesh.size:
+        raise ValueError(f"nfolds={nfolds} must be a multiple of the "
+                         f"fold_mesh size {mesh.size}")
+    if any(torch.device(d) != torch.device(device) for d in mesh.devices):
+        raise ValueError("a fold_mesh's positions in this process must "
+                         "share the data's device; give each device its "
+                         "own process (make_mesh(group=...))")
+    per = nfolds // mesh.size
+    return [f for pos in mesh.local for f in range(pos * per,
+                                                    (pos + 1) * per)]
 
 
 def _make_gaussian_fold_eta(alpha, enet_scale, standardize, intercept,
@@ -204,12 +231,12 @@ def _make_gaussian_fold_eta(alpha, enet_scale, standardize, intercept,
     factors and box (``exclude`` merged in)."""
     from .lasso import _path_user, validate_pf_limits
 
-    def run(X, y, lams, masks, fid):
+    def run(X, y, lams, masks, fid, mesh=None):
         pf, lim = validate_pf_limits(
             solver_kw.get("penalty_factor"), solver_kw.get("exclude"),
             solver_kw.get("lower_limits"), solver_kw.get("upper_limits"),
             X.shape[1], X.dtype, X.device)
-        return _fold_sweep(X, masks, fid, lambda mask: _path_user(
+        return _fold_sweep(X, masks, fid, mesh, lambda mask: _path_user(
             X, y, lams, solver_kw.get("rho", -1.0),
             solver_kw.get("maxit", 10000), solver_kw.get("eps_abs", 1e-5),
             solver_kw.get("eps_rel", 1e-5), alpha, mask, pf, lim,
@@ -234,13 +261,13 @@ def _make_glm_fold_eta(fam, alpha, standardize, intercept, maxit,
 
     steps = _default_newton_steps(fam, newton_steps)
 
-    def run(X, y, lams, masks, fid):
+    def run(X, y, lams, masks, fid, mesh=None):
         pf, lim = validate_pf_limits(penalty_factor, exclude, lower_limits,
                                      upper_limits, X.shape[1], X.dtype,
                                      X.device)
         off = (None if offset is None
                else _as_tensor(offset, X.dtype, X.device).reshape(-1))
-        eta = _fold_sweep(X, masks, fid, lambda mask: _glm_path(
+        eta = _fold_sweep(X, masks, fid, mesh, lambda mask: _glm_path(
             X, y, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, alpha, mask,
             off, pf, lim, family=fam, standardize_x=standardize,
             intercept=intercept, path_mode=path_mode, newton_steps=steps))
@@ -330,10 +357,13 @@ def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
     drivers add 'class' and 'auc').  ``keep`` returns the (n, nlambda)
     prevalidated predictors in ``fit_preval``.
 
-    Not ported yet, and raising ``NotImplementedError`` when given:
-    ``fold_mesh`` (the fold axis sharded over devices).
+    ``fold_mesh`` (via ``solver_kw``; a mesh of
+    :mod:`admm_tpu_torch.parallel.mesh`) deals the one-pass sweep's folds
+    over its positions, nfolds a multiple of its size; each process
+    solves its own folds, and the result equals the CV without a mesh
+    (folds are independent).  The full fit runs on every process.
     """
-    _not_ported(fold_mesh=solver_kw.pop("fold_mesh", None))
+    fold_mesh = solver_kw.pop("fold_mesh", None)
     dtype = solver_kw.get("dtype") or torch.float32
     X = _as_tensor(X, dtype, device)
     n, p = X.shape
@@ -402,7 +432,7 @@ def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
         eta_dev = fold_eta(
             X, y_t, full.lambdas,
             torch.as_tensor(masks, dtype=dtype, device=X.device),
-            np.clip(foldid, 0, None))
+            np.clip(foldid, 0, None), mesh=fold_mesh)
         # Default measures without keep: score on the device, and only
         # the two curves cross to the host.
         dev_reduce = None
@@ -566,8 +596,8 @@ def cv_dantzig_path(X, y, *, nlambda: int = 100,
                             rho=rho, path_mode=path_mode, weights=wf,
                             dtype=dtype, device=device)
 
-    def fold_eta(Xf, yf, lams, masks, fid):
-        return _fold_sweep(Xf, masks, fid, lambda mask: _dpath_user(
+    def fold_eta(Xf, yf, lams, masks, fid, mesh=None):
+        return _fold_sweep(Xf, masks, fid, mesh, lambda mask: _dpath_user(
             Xf, yf, lams, rho, maxit, eps_abs, eps_rel, mask,
             standardize_x=standardize, intercept=intercept,
             path_mode="batch"))
@@ -604,10 +634,10 @@ def cv_group_lasso_path(X, y, groups, *, weights=None, nlambda: int = 100,
                                 obs_weights=wf, l1_ratio=l1_ratio,
                                 dtype=dtype, device=device)
 
-    def fold_eta(Xf, yf, lams, masks, fid):
+    def fold_eta(Xf, yf, lams, masks, fid, mesh=None):
         gi, gw = normalize_groups(groups, Xf.shape[1], weights, Xf.dtype,
                                   Xf.device)
-        return _fold_sweep(Xf, masks, fid, lambda mask: _gl_path(
+        return _fold_sweep(Xf, masks, fid, mesh, lambda mask: _gl_path(
             Xf, yf, gi, gw, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel,
             mask, standardize_x=standardize, intercept=intercept,
             l1_ratio=float(l1_ratio)))
@@ -641,9 +671,9 @@ def cv_gen_lasso_path(X, y, D, *, nlambda: int = 50,
                               path_mode=path_mode, weights=wf, dtype=dtype,
                               device=device)
 
-    def fold_eta(Xf, yf, lams, masks, fid):
+    def fold_eta(Xf, yf, lams, masks, fid, mesh=None):
         Dt = _as_tensor(D, Xf.dtype, Xf.device)
-        return _fold_sweep(Xf, masks, fid, lambda mask: _gen_path(
+        return _fold_sweep(Xf, masks, fid, mesh, lambda mask: _gen_path(
             Xf, yf, Dt, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
             intercept=intercept, path_mode="batch"))
 
@@ -682,14 +712,14 @@ def cv_constrained_lasso_path(X, y, C, d=None, *, nlambda: int = 50,
             weights=wf, maxit=maxit, eps_abs=eps_abs, eps_rel=eps_rel,
             rho=rho, dtype=dtype, device=device)
 
-    def fold_eta(Xf, yf, lams, masks, fid):
+    def fold_eta(Xf, yf, lams, masks, fid, mesh=None):
         C_t = torch.atleast_2d(_as_tensor(C, Xf.dtype, Xf.device))
         d_t = (torch.zeros((C_t.shape[0],), dtype=Xf.dtype,
                            device=Xf.device) if d is None
                else _as_tensor(d, Xf.dtype, Xf.device).reshape(-1))
         return _conlasso_fold_etas(Xf, yf, C_t, d_t, lams, masks, fid, rho,
                                    maxit, eps_abs, eps_rel,
-                                   intercept=intercept)
+                                   intercept=intercept, mesh=mesh)
 
     return cv_lasso_path(X, y, nlambda=nlambda,
                          lambda_min_ratio=lambda_min_ratio,
@@ -727,9 +757,9 @@ def cv_slope_path(X, y, *, lam_seq=None, q: float = 0.1, nlambda: int = 30,
                           eps_rel=eps_rel, rho=rho, dtype=dtype,
                           device=device)
 
-    def fold_eta(Xf, yf, lams, masks, fid):
+    def fold_eta(Xf, yf, lams, masks, fid, mesh=None):
         lam_t = torch.as_tensor(lam_np, dtype=Xf.dtype, device=Xf.device)
-        return _fold_sweep(Xf, masks, fid, lambda mask: _slope_path_dev(
+        return _fold_sweep(Xf, masks, fid, mesh, lambda mask: _slope_path_dev(
             Xf, yf, lam_t, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
             standardize_x=standardize, intercept=intercept,
             path_mode="batch"))
@@ -763,8 +793,8 @@ def cv_sqrt_lasso_path(X, y, *, nlambda: int = 30,
                                eps_rel=eps_rel, rho=rho, dtype=dtype,
                                device=device)
 
-    def fold_eta(Xf, yf, lams, masks, fid):
-        return _fold_sweep(Xf, masks, fid, lambda mask: _sqrt_path_dev(
+    def fold_eta(Xf, yf, lams, masks, fid, mesh=None):
+        return _fold_sweep(Xf, masks, fid, mesh, lambda mask: _sqrt_path_dev(
             Xf, yf, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
             standardize_x=standardize, intercept=intercept,
             path_mode="batch"))
@@ -784,12 +814,12 @@ def _matrix_eta(res, X_rows):
 
 def _matrix_cv_setup(n, nfolds, seed, foldid, path_kw):
     """The shared front of the matrix-response CV drivers: ``(weights,
-    foldid, nfolds)`` as numpy, ``fold_mesh`` refused."""
-    _not_ported(fold_mesh=path_kw.pop("fold_mesh", None))
+    foldid, nfolds, fold_mesh)``, the first two as numpy."""
+    fold_mesh = path_kw.pop("fold_mesh", None)
     w = path_kw.pop("weights", None)
     w = None if w is None else np.asarray(to_numpy(w), np.float64).ravel()
     foldid, nfolds = _cv_foldid(n, nfolds, seed, foldid)
-    return w, foldid, nfolds
+    return w, foldid, nfolds, fold_mesh
 
 
 def _onepass(cv_mode, path_kw):
@@ -841,7 +871,8 @@ def cv_multitask_lasso_path(X, Y, *, nfolds: int = 10, seed: int = 0,
         off = np.asarray(to_numpy(off), np.float64)
         if off.shape != Y_np.shape:
             raise ValueError("offset must match Y's (n, K) shape")
-    w, foldid, nfolds = _matrix_cv_setup(n, nfolds, seed, foldid, path_kw)
+    w, foldid, nfolds, fold_mesh = _matrix_cv_setup(n, nfolds, seed,
+                                                    foldid, path_kw)
     full = multitask_lasso_path(X, Y_np, nlambda=nlambda, offset=off,
                                 weights=w, dtype=dtype, device=X.device,
                                 **path_kw)
@@ -855,7 +886,7 @@ def cv_multitask_lasso_path(X, Y, *, nfolds: int = 10, seed: int = 0,
         Yt = torch.as_tensor(Yf, dtype=dtype, device=X.device)
         eta_all = to_numpy(_fold_sweep(
             X, _fold_masks(foldid, nfolds, w, dtype, X.device),
-            np.clip(foldid, 0, None), lambda mask: _mt_path(
+            np.clip(foldid, 0, None), fold_mesh, lambda mask: _mt_path(
                 X, Yt, 2, 1e-2, full.lambdas, path_kw.get("rho", -1.0),
                 path_kw.get("maxit", 10000), path_kw.get("eps_abs", 1e-5),
                 path_kw.get("eps_rel", 1e-5), mask, pf, keep_m,
@@ -925,7 +956,8 @@ def cv_multinomial_path(X, y, *, nfolds: int = 10, seed: int = 0,
         off = np.asarray(to_numpy(off), np.float64)
         if off.shape != (n, C):
             raise ValueError("offset must be (n, nclass)")
-    w, foldid, nfolds = _matrix_cv_setup(n, nfolds, seed, foldid, path_kw)
+    w, foldid, nfolds, fold_mesh = _matrix_cv_setup(n, nfolds, seed,
+                                                    foldid, path_kw)
     full = multinomial_lasso_path(X, y, nlambda=nlambda, offset=off,
                                   weights=w, dtype=dtype, device=X.device,
                                   **path_kw)
@@ -940,7 +972,7 @@ def cv_multinomial_path(X, y, *, nfolds: int = 10, seed: int = 0,
         y_t = torch.as_tensor(y, device=X.device)
         eta_all = to_numpy(_fold_sweep(
             X, _fold_masks(foldid, nfolds, w, dtype, X.device),
-            np.clip(foldid, 0, None), lambda mask: _mn_path(
+            np.clip(foldid, 0, None), fold_mesh, lambda mask: _mn_path(
                 X, y_t, 2, 1e-2, full.lambdas, path_kw.get("rho", -1.0),
                 path_kw.get("maxit", 10000), path_kw.get("eps_abs", 1e-5),
                 path_kw.get("eps_rel", 1e-5), path_kw.get("alpha", 1.0),

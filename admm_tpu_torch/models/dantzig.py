@@ -41,9 +41,11 @@ from ..core.engine import (ProblemOps, col, make_admm_solver,
                            make_batched_solver, make_state)
 from ..core.prox import box_clamp_neg, l2norm, soft_threshold
 from ..data.standardize import recover, standardize
-from ..linalg import dot, gram, spectral_radius_sym, tgram
-from .lasso import (PathResult, _as_tensor, _auto_lambdas,
-                    _batched_cold_states, _not_ported, _scan_path)
+from ..linalg import (dot, gram, spectral_radius_gram, spectral_radius_sym,
+                      tgram)
+from ..parallel.mesh import is_sharded
+from .lasso import (PathResult, _as_data, _as_tensor, _auto_lambdas,
+                    _batched_cold_states, _scan_path)
 
 
 def _dantzig_ops(apply_A, Xty, Xty_norm, sprad, lambda0, p) -> ProblemOps:
@@ -91,7 +93,10 @@ def _dantzig_setup(Xs, ys, rho0):
         sprad_g = spectral_radius_sym(XtX)
     else:
         apply_A = lambda v: dot(dot(v, Xs.mT), Xs)
-        sprad_g = spectral_radius_sym(tgram(Xs))
+        # A row-sharded X has no replicated XX': the matrix-free power
+        # iteration on it (same start vector, same operator).
+        sprad_g = (spectral_radius_gram(Xs) if is_sharded(Xs)
+                   else spectral_radius_sym(tgram(Xs)))
     sprad = sprad_g * sprad_g  # eigmax(X'X X'X) = eigmax(X'X)^2
 
     if rho0 > 0:
@@ -190,14 +195,15 @@ def dantzig_path(X, y, *, lambdas=None, nlambda: int = 100,
     weight k equals repeating the row k times.
 
     ``trace_len`` records the per-iteration residual trace of each lambda
-    (implies "scan").  ``data_mesh`` is not ported yet and raises
-    ``NotImplementedError``.
+    (implies "scan").  ``data_mesh`` shards X's rows over a mesh as in
+    :func:`admm_tpu_torch.lasso_path`: the moments, X'X and X'y (and the
+    wide operator's products) are sums over the mesh, the state is
+    replicated.
     """
-    _not_ported(data_mesh=data_mesh)
     if trace_len is not None:
         path_mode = "scan"
         trace_len = int(trace_len)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     n, p = X.shape
     if lambda_min_ratio is None:

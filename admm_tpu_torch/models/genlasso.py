@@ -32,9 +32,10 @@ import torch
 from ..core.engine import (ProblemOps, col, make_batched_solver,
                            make_fadmm_solver, make_state)
 from ..core.prox import l2norm, soft_threshold, sqnorm
+from ..data.standardize import col_mean
 from ..linalg import chol_inverse, gram, spectral_radius_sym
-from .lasso import (PathResult, _as_tensor, _batched_cold_states, _linspace,
-                    _not_ported, _scan_path)
+from .lasso import (PathResult, _as_data, _as_tensor, _batched_cold_states,
+                    _linspace, _scan_path)
 
 
 def difference_matrix(p: int, order: int = 1) -> np.ndarray:
@@ -76,7 +77,7 @@ def center_weight(X, y, weights, intercept):
         w = w * (n / torch.sum(w))
     if intercept:
         if w is None:
-            mean_x, mean_y = torch.mean(X, dim=0), torch.mean(y)
+            mean_x, mean_y = col_mean(X), torch.mean(y)
         else:
             mean_x, mean_y = (w @ X) / n, torch.sum(w * y) / n
         Xs = X - mean_x[None, :]
@@ -232,11 +233,11 @@ def gen_lasso_path(X, y, D, *, lambdas=None, nlambda: int = 50,
     operators); ``D = I`` is ``lasso_path`` with ``standardize=False``.
     ``weights`` are observation weights on the quadratic loss.
     ``path_mode`` "batch" or "scan"; ``trace_len`` records each lambda's
-    residual trace and implies "scan".  ``data_mesh`` is not ported yet
-    and raises ``NotImplementedError``.
+    residual trace and implies "scan".  ``data_mesh`` shards X's rows over
+    a mesh: the centering, X'X and X'y are sums over the mesh, the state
+    is replicated.
     """
-    _not_ported(data_mesh=data_mesh)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     D = _as_tensor(D, dtype, X.device)
     if D.dim() != 2 or D.shape[1] != X.shape[1]:

@@ -40,7 +40,8 @@ import torch
 from ..core.engine import (ProblemOps, make_admm_solver, make_batched_solver,
                            make_state)
 from ..core.prox import l2norm, soft_threshold
-from .lasso import (_as_tensor, _batched_cold_states, _linspace, _not_ported,
+from ..parallel.mesh import all_sum, blockwise
+from .lasso import (_as_data, _as_tensor, _batched_cold_states, _linspace,
                     _scan_path)
 from .multitask import _flat, _lane, _mat
 
@@ -77,12 +78,12 @@ def _weighted_cov(X, w, assume_centered=False):
     centered rows lands further from float64 than the JAX package's
     float32 ``dot`` on the CPU (0.9-4.5 times at n = 150), and the float32
     path follows S (``tests/glasso_f32_gap.py``)."""
-    Xd, wd = X.double(), w.double()
+    Xd, wd = blockwise(X, lambda b, sl: b.double()), w.double()
     sw = torch.sum(wd)
     mu = (wd @ Xd) / sw
     Xc = Xd if assume_centered else Xd - mu[None, :]
     S = (Xc * wd[:, None]).mT @ Xc / sw
-    return S.to(X.dtype), mu.to(X.dtype)
+    return S.to(w.dtype), mu.to(w.dtype)
 
 
 def _logdet_prox_eigh(G, rho):
@@ -239,7 +240,8 @@ def glasso_path(X=None, *, cov=None, weights=None, lambdas=None,
     ``lambda_min_ratio``.  ``path_mode``: "scan" (warm starts, the
     default) or "batch" (lambdas as lanes); ``trace_len`` implies scan.
     ``xupdate``: "newton" (Newton-Schulz square root) or "eigh".
-    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
+    ``data_mesh`` shards X's rows over a mesh: the weighted mean and
+    covariance (in float64, as without a mesh) are sums over the mesh.
     """
     if (X is None) == (cov is None):
         raise ValueError("pass exactly one of X or cov")
@@ -249,10 +251,15 @@ def glasso_path(X=None, *, cov=None, weights=None, lambdas=None,
             raise ValueError("cov must be a square (p, p) matrix")
         if weights is not None:
             raise ValueError("weights apply to X, not a precomputed cov")
+        if data_mesh is not None:
+            raise ValueError("data_mesh shards X's rows; a precomputed "
+                             "cov has none")
     else:
-        _not_ported(data_mesh=data_mesh)
-        S = empirical_covariance(X, weights, dtype=dtype, device=device,
-                                 assume_centered=assume_centered)
+        Xd = _as_data(X, dtype, device, data_mesh)
+        w = (torch.ones((Xd.shape[0],), dtype=dtype, device=Xd.device)
+             if weights is None
+             else _as_tensor(weights, dtype, Xd.device).reshape(-1))
+        S = _weighted_cov(Xd, w, assume_centered)[0]
     if path_mode not in ("batch", "scan"):
         raise ValueError("path_mode must be 'batch' or 'scan'")
     if xupdate not in ("newton", "eigh"):
@@ -290,7 +297,7 @@ def _fold_cov(X, w):
 
 
 def _cv_glasso_core(X, masks, w, lams, rho0, maxit, eps_abs, eps_rel, *,
-                    penalize_diagonal, xupdate="newton"):
+                    penalize_diagonal, xupdate="newton", mesh=None):
     """The fold sweep: fold f's path is the scan path on the weighted
     covariance with weight 0 on its held-out rows (the JAX package's
     vmapped lanes, one after another here), scored on the device.
@@ -298,13 +305,22 @@ def _cv_glasso_core(X, masks, w, lams, rho0, maxit, eps_abs, eps_rel, *,
     Returns ``(quad (n, L), logdet (nfolds, L))``: row i's Mahalanobis
     term under the fit of the fold that held it out (centered by that
     fold's training mean) and each fold's log-determinants, the two
-    pieces of the per-observation Gaussian negative log-likelihood."""
-    p = X.shape[1]
+    pieces of the per-observation Gaussian negative log-likelihood.  On a
+    ``mesh`` (``fold_mesh``) this process solves its own folds
+    (``cv._own_folds``); ``quad`` gains only zeros off a fold's rows and
+    the log-determinants are zero-filled, so the sums across positions
+    are exact."""
+    from .cv import _own_folds
+
+    p, nf = X.shape[1], masks.shape[0]
     pen_mask = _pen_mask(p, penalize_diagonal, X.dtype, X.device)
     quad = torch.zeros((lams.shape[0], X.shape[0]), dtype=X.dtype,
                        device=X.device)
-    logdets = []
-    for mask in masks:
+    logdets = torch.zeros((nf, lams.shape[0]), dtype=X.dtype,
+                          device=X.device)
+    for f in (range(nf) if mesh is None
+              else _own_folds(nf, mesh, X.device)):
+        mask = masks[f]
         S_f, mu_f = _fold_cov(X, w * mask)
         precs, _, _ = _solve_glasso(S_f, pen_mask, lams, rho0, maxit,
                                     eps_abs, eps_rel, "scan",
@@ -314,9 +330,11 @@ def _cv_glasso_core(X, masks, w, lams, rho0, maxit, eps_abs, eps_rel, *,
         q = torch.einsum("np,lpq,nq->ln", Xc, precs, Xc)
         quad = quad + q * (1.0 - mask)[None, :]
         sign, logdet = torch.linalg.slogdet(precs)
-        logdets.append(torch.where(sign > 0, logdet,
-                                   torch.full_like(logdet, -float("inf"))))
-    return quad.mT, torch.stack(logdets)
+        logdets[f] = torch.where(sign > 0, logdet,
+                                 torch.full_like(logdet, -float("inf")))
+    if mesh is not None:
+        quad, logdets = all_sum([quad], mesh), all_sum([logdets], mesh)
+    return quad.mT, logdets
 
 
 def cv_glasso_path(X, *, nfolds: int = 10, foldid=None, weights=None,
@@ -334,8 +352,8 @@ def cv_glasso_path(X, *, nfolds: int = 10, foldid=None, weights=None,
     ``admm_tpu.cv_glasso_path`` plus ``device``; folds from numpy's
     ``default_rng(seed)`` as there.  The grid comes from the full data;
     cvm/cvsd follow glmnet's per-observation aggregation.  ``fold_mesh``
-    is not ported yet and raises ``NotImplementedError``."""
-    _not_ported(fold_mesh=fold_mesh)
+    (a mesh of :mod:`admm_tpu_torch.parallel.mesh`, nfolds a multiple of
+    its size) deals the folds over its positions."""
     from .cv import _cv_foldid
 
     Xd = _as_tensor(X, dtype, device)
@@ -354,7 +372,8 @@ def cv_glasso_path(X, *, nfolds: int = 10, foldid=None, weights=None,
                             dtype=dtype, device=Xd.device)
     quad, logdet = _cv_glasso_core(
         Xd, masks, w, lams, rho, maxit, eps_abs, eps_rel,
-        penalize_diagonal=bool(penalize_diagonal), xupdate=xupdate)
+        penalize_diagonal=bool(penalize_diagonal), xupdate=xupdate,
+        mesh=fold_mesh)
     quad = quad.detach().cpu().numpy()       # (n, L)
     logdet = logdet.detach().cpu().numpy()   # (F, L)
 

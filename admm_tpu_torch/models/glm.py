@@ -41,11 +41,12 @@ import torch
 from ..core.engine import (ProblemOps, col, make_admm_solver,
                            make_batched_solver, make_state)
 from ..core.prox import enet_prox, l2norm, sqnorm
-from ..data.standardize import _guard
+from ..data.standardize import _guard, wcolsum
 from ..kernels import glm as glm_kernel
 from ..linalg import dot, gram, ridge_inverse
-from .lasso import (PathResult, _as_tensor, _batched_cold_states, _linspace,
-                    _not_ported, _scan_path, _truncate_path,
+from ..parallel.mesh import blockwise, is_sharded, rowsum
+from .lasso import (PathResult, _as_data, _as_tensor, _batched_cold_states,
+                    _linspace, _scan_path, _truncate_path,
                     validate_pf_limits)
 
 _NEWTON_STEPS = 2
@@ -390,9 +391,9 @@ def prep_design(X, standardize_x: bool, intercept: bool, weights=None):
         w = (torch.ones((n,), dtype=dtype, device=dev) if weights is None
              else torch.as_tensor(weights, dtype=dtype, device=dev))
         sw = torch.sum(w)
-        col_mean = torch.sum(w[:, None] * X, dim=0) / sw
+        col_mean = wcolsum(X, w) / sw
         c = X - col_mean[None, :]
-        col_sd = torch.sqrt(torch.sum(w[:, None] * c * c, dim=0) / sw)
+        col_sd = torch.sqrt(wcolsum(c, w, squared=True) / sw)
         sd_x = _guard(col_sd, col_mean)
         if intercept:
             mean_x = col_mean
@@ -400,8 +401,9 @@ def prep_design(X, standardize_x: bool, intercept: bool, weights=None):
         else:
             X = X / sd_x[None, :]
     if intercept:
-        Xa = torch.cat([torch.ones((n, 1), dtype=dtype, device=dev), X],
-                       dim=1)
+        Xa = blockwise(X, lambda b, sl: torch.cat(
+            [torch.ones((b.shape[0], 1), dtype=dtype, device=b.device), b],
+            dim=1))
         pen_mask = torch.cat([torch.zeros((1,), dtype=dtype, device=dev),
                               torch.ones((p,), dtype=dtype, device=dev)])
     else:
@@ -422,6 +424,12 @@ def recover_glm(coefs_a, mean_x, sd_x, intercept: bool):
     coef = slopes_std / sd_x[None, :]
     beta0 = b0_std - slopes_std @ (mean_x / sd_x)
     return beta0, coef
+
+
+def _wgram(Xa, w):
+    """``Xa' diag(w) Xa`` for one weight vector (n,) or lanes (K, n); of
+    a row-sharded Xa, a sum over the mesh."""
+    return rowsum(Xa, lambda b, sl: (b.mT * w[..., sl].unsqueeze(-2)) @ b)
 
 
 def _glm_ops(Xa, ys, family: GLMFamily, n, q, pen_mask, alpha,
@@ -479,7 +487,7 @@ def _glm_ops(Xa, ys, family: GLMFamily, n, q, pen_mask, alpha,
             w = family.weight_eta(eta, ys)
             if obs_w is not None:
                 w = obs_w * w
-            H = (Xa.mT * w.unsqueeze(-2)) @ Xa / n
+            H = _wgram(Xa, w) / n
             H = H + col(col(rho)) * eye
             L = torch.linalg.cholesky(H)
             b = b - torch.cholesky_solve(grad.unsqueeze(-1), L).squeeze(-1)
@@ -544,10 +552,12 @@ def _null_resid_with_offset(family, y, offset, intercept, w=None):
     return -(g if w is None else w * g)
 
 
-def _use_kernel_glm(n: int, q: int, dtype) -> bool:
-    """GLM kernel: float32, and the port's dispatch bound
-    ``7q + 2n <= 57600`` (``kernels/glm.py::fits``)."""
-    return dtype == torch.float32 and glm_kernel.fits(n, q)
+def _use_kernel_glm(n: int, q: int, dtype, X=None) -> bool:
+    """GLM kernel: float32, the port's dispatch bound ``7q + 2n <= 57600``
+    (``kernels/glm.py::fits``), and all of X on one device (a row-sharded
+    X takes the engine)."""
+    return (dtype == torch.float32 and glm_kernel.fits(n, q)
+            and not is_sharded(X))
 
 
 def _glm_auto_rho(family, rho0) -> float:
@@ -595,7 +605,7 @@ def _glm_engine(Xa, ys, family, lam_first, rho0, pen_mask, alpha,
                 eta = eta + offset
             w_warm = family.weight_eta(eta, ys)
             wm = w_warm if obs_w is None else obs_w * w_warm
-            H = dot(Xa.mT * wm[None, :], Xa) / n
+            H = _wgram(Xa, wm) / n
             # (Minv, w_warm): the damping ratio compares RAW family
             # curvatures (obs_w scales both sides identically and a
             # zero weight must not poison the max).
@@ -693,7 +703,7 @@ def _glm_path(X, y, nlambda, lambda_min_ratio, user_lams, rho, maxit,
     if (path_mode == "batch" and hessian == "fixed" and w is None
             and offset is None and pf is None and bounds is None
             and fam.name in glm_kernel.FAMILIES
-            and _use_kernel_glm(n, q, dtype)):
+            and _use_kernel_glm(n, q, dtype, Xa)):
         rho_v = _glm_auto_rho(fam, rho)
         Minv = _glm_fixed_minv(Xa, fam, rho_v)
         coefs_a, niter = glm_kernel.glm_batch_path(
@@ -774,16 +784,18 @@ def glm_lasso_path(X, y, family, *, lambdas=None, nlambda: int = 50,
 
     ``trace_len`` records each lambda's per-iteration residual trace and
     forces ``path_mode="scan"`` (the engine, never the kernel).
-    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
+    ``data_mesh`` shards X's rows over a mesh: the moments, the
+    majorizer's Gram and each Newton step's gradient and Hessian are sums
+    over the mesh, ``X b`` is computed per block and gathered; the GLM
+    kernel holds all of X, so the engine runs.
     """
-    _not_ported(data_mesh=data_mesh)
     if trace_len is not None:
         path_mode = "scan"
         trace_len = int(trace_len)
     if dtype is None:
         dtype = torch.float32
-    X = _as_tensor(X, dtype, device)
-    y = _as_tensor(y, dtype, device).reshape(-1)
+    X = _as_data(X, dtype, device, data_mesh)
+    y = _as_tensor(y, dtype, X.device).reshape(-1)
     if not (0.0 < alpha <= 1.0):
         raise ValueError("alpha must be in (0, 1] for GLM paths")
     if hessian not in ("auto", "fixed", "exact", "adaptive"):

@@ -34,7 +34,7 @@ from ..core.engine import col, make_admm_solver, make_fadmm_solver, make_state
 from ..core.prox import soft_threshold
 from ..data.standardize import recover, standardize
 from ..linalg import spectral_radius_gram
-from .lasso import (PathResult, _as_tensor, _linspace, _not_ported,
+from .lasso import (PathResult, _as_data, _as_tensor, _linspace,
                     _scan_path, _tall_ops, _tall_setup, _wide_ops)
 
 
@@ -223,11 +223,11 @@ def group_lasso_path(X, y, groups, *, weights=None, lambdas=None,
     ``l1_ratio`` mixes in a coordinate l1 term (the sparse-group lasso:
     0 is the pure group lasso, 1 the Lasso).  ``obs_weights`` are glmnet's
     observation weights.  ``trace_len`` records each lambda's residual
-    trace.  ``data_mesh`` is not ported yet and raises
-    ``NotImplementedError``.
+    trace.  ``data_mesh`` shards X's rows over a mesh as in
+    :func:`admm_tpu_torch.lasso_path` (the wide engine's products per
+    block, the sums over the mesh).
     """
-    _not_ported(data_mesh=data_mesh)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     n, p = X.shape
     groups_t, gweights = normalize_groups(groups, p, weights, dtype,

@@ -42,13 +42,16 @@ from ..core.prox import l2norm, sqnorm
 from ..data.standardize import recover, standardize
 from ..kernels import lad as lad_kernel
 from ..linalg import chol_inverse, dot, gram
-from .lasso import _as_tensor, _not_ported
+from ..parallel.mesh import blockwise, is_sharded
+from .lasso import _as_data, _as_tensor
 
 
-def _use_kernel_lad(n: int, dtype, tau: float) -> bool:
-    """LAD kernel: float32, the symmetric (median) prox, and n no larger
-    than the kernel takes (``n <= kernels.lad.MAX_N``)."""
-    return dtype == torch.float32 and tau == 0.5 and lad_kernel.fits(n)
+def _use_kernel_lad(n: int, dtype, tau: float, X=None) -> bool:
+    """LAD kernel: float32, the symmetric (median) prox, n no larger than
+    the kernel takes (``n <= kernels.lad.MAX_N``), and X on one device:
+    the kernel iterates against all of the hat matrix."""
+    return (dtype == torch.float32 and tau == 0.5 and lad_kernel.fits(n)
+            and not is_sharded(X))
 
 
 class LADResult(NamedTuple):
@@ -121,8 +124,9 @@ def _lad_setup(X, y, intercept):
     Xs, ys, stats = standardize(X, y, standardize_x=True,
                                 intercept=intercept)
     if intercept:
-        ones = torch.ones((n, 1), dtype=X.dtype, device=X.device)
-        Xa = torch.cat([ones, Xs], dim=1)
+        Xa = blockwise(Xs, lambda b, sl: torch.cat(
+            [torch.ones((b.shape[0], 1), dtype=b.dtype, device=b.device), b],
+            dim=1))
     else:
         Xa = Xs
     # X'X is unregularised here; jitter guards float32 conditioning (the
@@ -150,7 +154,7 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept, tau=0.5,
 
     buf = None
     # A traced solve takes the engine, as in the JAX package.
-    if trace_len is None and _use_kernel_lad(n, dtype, tau):
+    if trace_len is None and _use_kernel_lad(n, dtype, tau, X):
         adj_y, adj_z, niter = lad_kernel.lad_solve(
             _hat_matrix(Xa, Ginv), ys.contiguous(), rho_host, eps_abs,
             eps_rel, ynorm, maxit)
@@ -213,12 +217,14 @@ def lad_fit(X, y, *, intercept: bool = True, maxit: int = 10000,
     the reference's double precision and takes the engine with the
     reference's eps 1e-4.  rho defaults to 5.  ``trace_len`` records the
     per-iteration residual trace, on the engine (never the kernel).
-    ``data_mesh`` is not ported yet and raises ``NotImplementedError``.
+    ``data_mesh`` shards X's rows over a mesh: X'X and the engine's
+    factored projection ``X Ginv X' v`` run per block (``X'v`` a sum over
+    the mesh, ``X .`` gathered); the hat-matrix kernel needs all of H, so
+    it does not run on a mesh.
     """
-    _not_ported(data_mesh=data_mesh)
     dtype, eps_abs, eps_rel, rho = _f64_class_defaults(dtype, eps_abs,
                                                        eps_rel, rho)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     return _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, intercept=intercept,
                     trace_len=None if trace_len is None else int(trace_len))
@@ -235,15 +241,14 @@ def quantile_fit(X, y, *, tau: float = 0.5, intercept: bool = True,
     ``tau = 0.5`` reduces exactly to :func:`lad_fit`; other quantiles swap
     the z-prox for the asymmetric soft-threshold (see ``_lad_ops``) and
     take the engine.  Everything else (the range-space projection, the
-    free quantile-optimal intercept, the defaults, ``dtype`` and
-    ``device``) is shared with LAD.
+    free quantile-optimal intercept, the defaults, ``dtype``, ``device``
+    and ``data_mesh``) is shared with LAD.
     """
     if not 0.0 < tau < 1.0:
         raise ValueError("tau must be in (0, 1)")
-    _not_ported(data_mesh=data_mesh)
     dtype, eps_abs, eps_rel, rho = _f64_class_defaults(dtype, eps_abs,
                                                        eps_rel, rho)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     if X.shape[0] <= X.shape[1]:
         raise ValueError("nrow(x) must be greater than ncol(x)")

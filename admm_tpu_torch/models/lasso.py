@@ -42,6 +42,7 @@ from ..core.prox import enet_prox, l2norm, sqnorm
 from ..data.standardize import StdStats, recover, standardize
 from ..kernels import tall_path, wide_path
 from ..linalg import dot, gram, ridge_inverse, spectral_radius_gram, spectral_radius_sym
+from ..parallel.mesh import is_sharded, put_dim_sharded
 
 
 class PathResult(NamedTuple):
@@ -145,10 +146,12 @@ def _use_kernel_tall(p: int, dtype) -> bool:
     return dtype == torch.float32 and tall_path.fits(p)
 
 
-def _use_kernel_wide(n: int, p: int, dtype) -> bool:
-    """Wide path kernel: float32, and ``3p + 5n`` floats of lane state in
-    one block's shared memory."""
-    return dtype == torch.float32 and wide_path.fits(n, p)
+def _use_kernel_wide(n: int, p: int, dtype, Xs=None) -> bool:
+    """Wide path kernel: float32, ``3p + 5n`` floats of lane state in
+    one block's shared memory, and all of X on one device (a row-sharded
+    X takes the engine)."""
+    return (dtype == torch.float32 and wide_path.fits(n, p)
+            and not is_sharded(Xs))
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +408,7 @@ def _solve_path_wide_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
                                       enet_lambda0_scale)
     rhos = torch.broadcast_to(rho, (k,)).contiguous()
     if (trace_len is None and pf is None and bounds is None
-            and _use_kernel_wide(n, p, Xs.dtype)):
+            and _use_kernel_wide(n, p, Xs.dtype, Xs)):
         return (*wide_path.wide_path_batch(
             Xs.contiguous(), ys.contiguous(), ilams.contiguous(), rhos,
             sprad, lambda0, eps_abs, eps_rel, alpha, maxit), None)
@@ -641,11 +644,15 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def _not_ported(**options) -> None:
-    for name, value in options.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name} is not ported to admm_tpu_torch yet")
+def _as_data(X, dtype, device, data_mesh=None, dim: int = 0):
+    """The data matrix of an entry point: ``_as_tensor``'s, or under
+    ``data_mesh`` this process's blocks along ``dim``
+    (:func:`~admm_tpu_torch.parallel.mesh.put_dim_sharded`), each on its
+    position's device; the replicated inputs then go to the mesh's home
+    device (``X.device``)."""
+    if data_mesh is None:
+        return _as_tensor(X, dtype, device)
+    return put_dim_sharded(X, data_mesh, dim, dtype)
 
 
 def lasso_path(X, y, *, lambdas=None, nlambda: int = 100,
@@ -691,8 +698,18 @@ def lasso_path(X, y, *, lambdas=None, nlambda: int = 100,
     ``result.trace``, (nlambda, trace_len, 5) on the result's device.  A
     traced path runs on the engine, never a kernel: "scan" records the
     warm-started sequence, "batch" each cold-start lane's own iterations,
-    and "activeset" falls back to the traced scan.  ``data_mesh`` is not
-    ported yet and raises ``NotImplementedError``.
+    and "activeset" falls back to the traced scan.
+
+    ``data_mesh`` (operator parallelism; a mesh of
+    :mod:`admm_tpu_torch.parallel.mesh`): X is sharded along its rows over
+    the mesh, and each process holds only its positions' rows.  The
+    standardization moments, the Gram X'X, X'y and the wide path's
+    per-iteration ``X'r`` are sums over the mesh and ``X v`` is computed
+    per block and gathered; the (p, p) state stays replicated, as in the
+    JAX package.  Set up, the tall path needs only the replicated ridge
+    inverse and X'y, so it keeps its scan or batch kernel; the wide
+    kernel holds all of X, so a sharded wide path runs on the engine.
+    Results equal the run without a mesh up to reduction order.
     """
     if path_mode not in ("scan", "batch", "activeset"):
         raise ValueError(
@@ -701,9 +718,8 @@ def lasso_path(X, y, *, lambdas=None, nlambda: int = 100,
         if path_mode != "batch":
             path_mode = "scan"
         trace_len = int(trace_len)
-    _not_ported(data_mesh=data_mesh)
-    X = _as_tensor(X, dtype, device)
-    y = _as_tensor(y, dtype, device).reshape(-1)
+    X = _as_data(X, dtype, device, data_mesh)
+    y = _as_tensor(y, dtype, X.device).reshape(-1)
     if offset is not None:
         off = _as_tensor(offset, dtype, y.device).reshape(-1)
         if off.shape != y.shape:

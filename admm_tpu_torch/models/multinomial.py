@@ -31,7 +31,7 @@ from ..core.prox import l2norm, soft_threshold, sqnorm
 from ..interop import to_numpy
 from ..linalg import ridge_inverse
 from .glm import prep_design
-from .lasso import (_as_tensor, _linspace, _not_ported, _scan_path,
+from .lasso import (_as_data, _as_tensor, _linspace, _scan_path,
                     validate_pf_limits)
 from .multitask import _broadcast_lanes, _flat, _keep_mask, _lane, _mat
 
@@ -239,9 +239,11 @@ def multinomial_lasso_path(X, y, *, nclass: Optional[int] = None,
     defaulting to ``max(y) + 1``.  ``grouped=True`` is the row-wise group
     penalty; the default penalizes every coefficient with the elastic-net
     mix ``alpha``.  ``weights``, ``penalty_factor``, ``exclude`` and the
-    (n, C) ``offset`` are glmnet's.  ``data_mesh`` is not ported yet and
-    raises ``NotImplementedError``."""
-    X = _as_tensor(X, dtype, device)
+    (n, C) ``offset`` are glmnet's.  ``data_mesh`` shards X's rows over a
+    mesh (the labels stay replicated): the moments, the majorizer's Gram
+    and each step's softmax gradient are sums over the mesh, ``X B``
+    gathered."""
+    X = _as_data(X, dtype, device, data_mesh)
     y_t = torch.as_tensor(np.asarray(to_numpy(y)).ravel(), device=X.device)
     if nclass is None:
         nclass = int(y_t.max()) + 1
@@ -253,7 +255,6 @@ def multinomial_lasso_path(X, y, *, nclass: Optional[int] = None,
         raise ValueError("path_mode must be 'batch' or 'scan'")
     if trace_len is not None:
         path_mode, trace_len = "scan", int(trace_len)
-    _not_ported(data_mesh=data_mesh)
     lams = (None if lambdas is None
             else torch.sort(_as_tensor(lambdas, dtype, X.device).reshape(-1),
                             descending=True).values)

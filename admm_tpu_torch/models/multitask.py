@@ -31,10 +31,10 @@ import torch
 from ..core.engine import (ADMMState, ProblemOps, make_admm_solver,
                            make_batched_solver, make_fadmm_solver, make_state)
 from ..core.prox import l2norm, sqnorm
-from ..data.standardize import _guard
+from ..data.standardize import _guard, wcolsum
 from ..linalg import gram, ridge_inverse, spectral_radius_gram
 from ..linalg import spectral_radius_sym
-from .lasso import (_as_tensor, _linspace, _not_ported, _scan_path,
+from .lasso import (_as_data, _as_tensor, _linspace, _scan_path,
                     validate_pf_limits)
 from .rpca import svt
 
@@ -214,7 +214,7 @@ def mt_standardize(X, Y, *, standardize_x, intercept, weights=None,
     wcol = torch.ones((n,), dtype=dtype, device=dev) if w is None else w
 
     def wmean(v):
-        return torch.sum(wcol[:, None] * v, dim=0) / n
+        return wcolsum(v, wcol) / n
 
     mean_x = torch.zeros((p,), dtype=dtype, device=dev)
     sd_x = torch.ones((p,), dtype=dtype, device=dev)
@@ -228,7 +228,7 @@ def mt_standardize(X, Y, *, standardize_x, intercept, weights=None,
         mean_x = col_mean
     if standardize_x:
         c = X - col_mean[None, :]
-        sd_x = _guard(torch.sqrt(torch.sum(wcol[:, None] * c * c, dim=0) / n),
+        sd_x = _guard(torch.sqrt(wcolsum(c, wcol, squared=True) / n),
                       col_mean)
         Xs = Xs / sd_x[None, :]
     sd_y = torch.ones((K,), dtype=dtype, device=dev)
@@ -333,8 +333,9 @@ def multitask_lasso_path(X, Y, *, lambdas=None, nlambda: int = 50,
     ``standardize_response`` glmnet's ``standardize.response``, ``offset``
     an (n, K) response shift, ``alpha`` the row elastic net, and
     ``penalty="nuclear"`` the trace norm (see
-    :func:`multitask_nuclear_path`).  ``data_mesh`` is not ported yet and
-    raises ``NotImplementedError``.
+    :func:`multitask_nuclear_path`).  ``data_mesh`` shards X's rows over a
+    mesh (Y stays replicated): the moments, X'X and X'Y are sums over the
+    mesh, ``X B`` is gathered.
     """
     if penalty not in ("rows", "nuclear"):
         raise ValueError("penalty must be 'rows' or 'nuclear'")
@@ -345,7 +346,7 @@ def multitask_lasso_path(X, Y, *, lambdas=None, nlambda: int = 50,
                          "does not support them")
     if not (0.0 < alpha <= 1.0):
         raise ValueError("alpha must be in (0, 1]")
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     Y = _as_tensor(Y, dtype, X.device)
     if Y.dim() != 2:
         raise ValueError("Y must be (n, K) — use lasso_path for a "
@@ -361,7 +362,6 @@ def multitask_lasso_path(X, Y, *, lambdas=None, nlambda: int = 50,
         raise ValueError("path_mode must be 'batch' or 'scan'")
     if trace_len is not None:
         path_mode, trace_len = "scan", int(trace_len)
-    _not_ported(data_mesh=data_mesh)
     lams = (None if lambdas is None
             else torch.sort(_as_tensor(lambdas, dtype, X.device).reshape(-1),
                             descending=True).values)

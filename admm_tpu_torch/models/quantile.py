@@ -290,7 +290,7 @@ def _quantile_fold_etas(X, y, taus, lams, masks, fid, rho, maxit, eps_abs,
     out.  Returns (n, T, L) on X's device."""
     from .cv import _fold_sweep
 
-    return _fold_sweep(X, masks, fid, lambda mask: _quantile_path_dev(
+    return _fold_sweep(X, masks, fid, None, lambda mask: _quantile_path_dev(
         X, y, taus, 2, 1e-2, lams, rho, maxit, eps_abs, eps_rel, mask,
         standardize_x=standardize_x, intercept=intercept,
         path_mode="batch"), lambda res, X_rows: (

@@ -31,7 +31,7 @@ import torch
 from ..data.standardize import recover, standardize
 from ..interop import to_numpy
 from ..linalg import gram
-from .lasso import PathResult, _as_tensor, _not_ported, lasso_path
+from .lasso import PathResult, _as_tensor, lasso_path
 
 
 class RelaxedPathResult(NamedTuple):
@@ -129,13 +129,13 @@ def cv_relaxed_lasso_path(X, y, *, nfolds: int = 10,
     fits each training subset (the fallback when other lasso arguments
     are given).  Returns a dict with the (G, L) ``cvm``/``cvsd``, the
     selected ``lambda_min``/``gamma_min``, the full-data
-    :class:`RelaxedPathResult` and the foldid.  ``fold_mesh`` is not
-    ported yet and raises ``NotImplementedError``.
+    :class:`RelaxedPathResult` and the foldid.  ``fold_mesh`` (a mesh of
+    :mod:`admm_tpu_torch.parallel.mesh`, nfolds a multiple of its size)
+    deals the one-pass folds over its positions.
     """
     from .cv import _cv_foldid, _fold_sweep
     from .lasso import _path_user
 
-    _not_ported(fold_mesh=fold_mesh)
     if cv_mode not in ("auto", "onepass", "loop"):
         raise ValueError("cv_mode must be 'auto', 'onepass' or 'loop'")
     dtype = lasso_kw.get("dtype") or torch.float32
@@ -191,7 +191,8 @@ def cv_relaxed_lasso_path(X, y, *, nfolds: int = 10,
                               beta0=torch.cat([res.beta0, rb0]),
                               coef=torch.cat([res.coef, rcoef]), niter=None)
 
-        eta = _fold_sweep(Xt, masks_t, np.clip(foldid, 0, None), solve_fold)
+        eta = _fold_sweep(Xt, masks_t, np.clip(foldid, 0, None), fold_mesh,
+                          solve_fold)
         eta_l, eta_r = eta[:, :L], eta[:, L:]                # (n, L) each
         g = gam_t[None, :, None]
         eta_all = g * eta_l[:, None, :] + (1.0 - g) * eta_r[:, None, :]

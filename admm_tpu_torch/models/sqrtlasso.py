@@ -34,10 +34,11 @@ import torch
 from ..core.engine import (ProblemOps, col, make_admm_solver,
                            make_batched_solver, make_fadmm_solver, make_state)
 from ..core.prox import l2norm, soft_threshold, sqnorm
-from ..data.standardize import _guard
+from ..data.standardize import _guard, wcolsum
+from ..parallel.mesh import is_sharded
 from ..linalg import chol_inverse, gram
-from .lasso import (PathResult, _as_tensor, _batched_cold_states, _linspace,
-                    _not_ported, _scan_path, _tall_ops, _tall_setup,
+from .lasso import (PathResult, _as_data, _as_tensor, _batched_cold_states,
+                    _linspace, _scan_path, _tall_ops, _tall_setup,
                     _wide_ops, _wide_setup)
 
 
@@ -296,8 +297,9 @@ def _sqrt_prepare(X, y, weights, *, standardize_x, intercept):
     wcol = torch.ones((n,), dtype=dtype, device=dev) if w is None else w
 
     def wmean(v, axis=None):
-        ww = wcol if v.dim() == 1 else wcol[:, None]
-        return torch.sum(ww * v, dim=axis) / n
+        if is_sharded(v) or v.dim() == 2:
+            return wcolsum(v, wcol) / n
+        return torch.sum(wcol * v, dim=axis) / n
 
     mean_x = torch.zeros((p,), dtype=dtype, device=dev)
     mean_y = torch.zeros((), dtype=dtype, device=dev)
@@ -311,8 +313,7 @@ def _sqrt_prepare(X, y, weights, *, standardize_x, intercept):
     if standardize_x:
         cm = wmean(X, axis=0)
         c = X - cm[None, :]
-        sd_x = _guard(torch.sqrt(torch.sum(wcol[:, None] * c * c, dim=0) / n),
-                      cm)
+        sd_x = _guard(torch.sqrt(wcolsum(c, wcol, squared=True) / n), cm)
         Xs = Xs / sd_x[None, :]
     if w is not None:
         sw = torch.sqrt(w)
@@ -384,8 +385,10 @@ def sqrt_lasso_path(X, y, *, lambdas=None, nlambda: int = 30,
     ``algorithm``: "concomitant" (default, the scaled-lasso alternation
     on the Lasso's tall or wide engine) or "stacked" (one FADMM on the
     stacked splitting, the solver a ``trace_len`` request traces).
-    ``weights`` are observation weights.  ``data_mesh`` is not ported yet
-    and raises ``NotImplementedError``.
+    ``weights`` are observation weights.  ``data_mesh`` shards X's rows
+    over a mesh: the moments, X'X, X'y and the sigma step's residual norm
+    run per block (sums over the mesh, ``X b`` gathered); the tall
+    engine's state is replicated.
     """
     if path_mode not in ("batch", "scan"):
         raise ValueError("path_mode must be 'batch' or 'scan'")
@@ -393,8 +396,7 @@ def sqrt_lasso_path(X, y, *, lambdas=None, nlambda: int = 30,
         raise ValueError("algorithm must be 'concomitant' or 'stacked'")
     if trace_len is not None:
         path_mode, algorithm, trace_len = "scan", "stacked", int(trace_len)
-    _not_ported(data_mesh=data_mesh)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     lams = (None if lambdas is None
             else torch.sort(_as_tensor(lambdas, dtype, X.device).reshape(-1),

@@ -27,7 +27,8 @@ from ..core.engine import (ProblemOps, col, make_batched_solver,
 from ..core.prox import l2norm, sqnorm
 from ..interop import to_numpy
 from ..linalg import chol_inverse, gram
-from .lasso import _as_tensor, _batched_cold_states, _not_ported, _scan_path
+from ..parallel.mesh import blockwise
+from .lasso import _as_data, _as_tensor, _batched_cold_states, _scan_path
 
 
 class SVMResult(NamedTuple):
@@ -86,10 +87,9 @@ def _svm_setup(X, ysign, intercept, rho0, Cs):
     every C, rho and d.  Auto-rho ``0.3 C^(1/3)`` at the grid's geometric
     mean C (the JAX package's DESIGN.md "SVM rho", measured on the TPU)."""
     dtype, dev = X.dtype, X.device
-    cols = [X * ysign[:, None]]
-    if intercept:
-        cols.append(ysign[:, None])
-    A = torch.cat(cols, dim=1)
+    A = blockwise(X, lambda b, sl: torch.cat(
+        [b * ysign[sl, None]] + ([ysign[sl, None]] if intercept else []),
+        dim=1))
     d = A.shape[1]
     if rho0 > 0:
         rho = torch.tensor(rho0, dtype=dtype, device=dev)
@@ -169,11 +169,11 @@ def svm_path(X, y, *, Cs=None, nC: int = 20, C_min_ratio: float = 1e-3,
     against one cached factorization (``path_mode="batch"``); "scan"
     warm-starts them in sequence.  ``weights`` scale each row's penalty
     ``C w_i``.  The auto grid is ``nC`` geometric points over
-    ``[C_min_ratio, 1]``.  ``data_mesh`` is not ported yet and raises
-    ``NotImplementedError``."""
+    ``[C_min_ratio, 1]``.  ``data_mesh`` shards X's rows over a mesh: the
+    margin matrix's Gram and the margin products run per block (``A'u``
+    a sum over the mesh, ``A v`` gathered)."""
     ysign, classes = _as_sign(y)
-    _not_ported(data_mesh=data_mesh)
-    X = _as_tensor(X, dtype, device)
+    X = _as_data(X, dtype, device, data_mesh)
     n, p = X.shape
     if ysign.shape[0] != n:
         raise ValueError("x and y must have the same number of rows")
@@ -217,7 +217,7 @@ class CVSVMResult(NamedTuple):
 
 
 def _cv_svm_decisions(X, ysign, masks, w, Cs, fid, rho0, maxit, eps_abs,
-                      eps_rel, *, loss, intercept):
+                      eps_rel, *, loss, intercept, mesh=None):
     """Every fold's C path and the held-out decision values
     (``cv._fold_sweep``): fold f fits with weights ``w * mask_f`` (held-out
     rows get penalty 0, so each fit is the training-subset fit), fold after
@@ -226,7 +226,7 @@ def _cv_svm_decisions(X, ysign, masks, w, Cs, fid, rho0, maxit, eps_abs,
     device."""
     from .cv import _fold_sweep
 
-    return _fold_sweep(X, masks, fid, lambda mask: _svm_path_dev(
+    return _fold_sweep(X, masks, fid, mesh, lambda mask: _svm_path_dev(
         X, ysign, Cs, w * mask, rho0, maxit, eps_abs, eps_rel, loss=loss,
         intercept=intercept, path_mode="batch"),
         lambda res, X_rows: X_rows @ res.coef.mT + res.intercept[None, :])
@@ -243,10 +243,10 @@ def cv_svm_path(X, y, *, nfolds: int = 10, foldid=None, weights=None,
     (``type_measure="class"``) or the loss itself (``"loss"``), with
     glmnet's per-observation aggregation and one-SE rule (toward smaller C,
     stronger regularization).  Same arguments and defaults as
-    ``admm_tpu.cv_svm_path``, plus ``device``.  ``fold_mesh`` is not
-    ported yet and raises ``NotImplementedError``."""
+    ``admm_tpu.cv_svm_path``, plus ``device``.  ``fold_mesh`` (a mesh of
+    :mod:`admm_tpu_torch.parallel.mesh`, nfolds a multiple of its size)
+    deals the folds over its positions."""
     ysign, _ = _as_sign(y)
-    _not_ported(fold_mesh=fold_mesh)
     Xd = _as_tensor(X, dtype, device)
     n = Xd.shape[0]
     if type_measure not in ("class", "loss"):
@@ -279,7 +279,8 @@ def cv_svm_path(X, y, *, nfolds: int = 10, foldid=None, weights=None,
     eta = to_numpy(_cv_svm_decisions(
         Xd, torch.as_tensor(ysign, dtype=dtype, device=Xd.device), masks, w,
         fit.Cs, np.clip(foldid, 0, None), rho, maxit, eps_abs, eps_rel,
-        loss=loss, intercept=bool(intercept))).astype(np.float64)  # (n, k)
+        loss=loss, intercept=bool(intercept),
+        mesh=fold_mesh)).astype(np.float64)                       # (n, k)
     # Train-only rows (foldid < 0) are never held out: not scored.
     scored = foldid >= 0
     margin = (ysign[:, None] * eta)[scored]

@@ -1,4 +1,4 @@
-"""Consensus (parallel) ADMM on one device (counterpart of
+"""Consensus (parallel) ADMM (counterpart of
 ``admm_tpu/parallel/consensus.py``).
 
 Global-variable consensus over row blocks, the reference's one
@@ -14,12 +14,19 @@ master prox hook, and carries the Lasso, Elastic Net, group, SLOPE,
 constrained and zero-sum lasso, Basis Pursuit, the penalized GLMs, the
 multinomial and the multi-task paths.
 
-Layout: the W workers are a leading batch axis on one device, the JAX
-package's ``W_local`` (the reference's OpenMP threads as one batched
-product).  The JAX package's device mesh (``shard_map`` over D devices)
-is not ported: ``mesh=`` raises ``NotImplementedError``, and the one
-reduction per iteration sums over the worker axis only.  Kept exactly,
-since each moves ``niter`` otherwise:
+Layout: the W workers are a leading batch axis, the JAX package's
+``W_local`` (the reference's OpenMP threads as one batched product).
+``mesh=`` (:mod:`admm_tpu_torch.parallel.mesh`) spreads them over D
+positions, W/D contiguous workers each: a position factorizes and
+updates only its own workers, and the one collective of an iteration
+gathers the workers' new x rows, so every position then forms the packed
+reduction below from the same (W, p) stack, in the same order as without
+a mesh (the JAX package's psum of the packed vector).  The positions of
+one process that share a device run their workers as one batch, so a
+one-process mesh on one device gives the bits of the same W without a
+mesh; ranks in separate processes run smaller batches, whose products
+may round differently on the card.  Kept exactly, since each moves
+``niter`` otherwise:
 
 * the packed reduction ``[sum_i(x_i + y_i/rho), sum||x_i||^2,
   sum||y_i||^2, sum||r_i||^2]`` of each iteration;
@@ -55,6 +62,7 @@ from ..data.standardize import standardize as standardize_data
 from ..linalg import chol_inverse, gram
 from ..models.bp import BPResult
 from ..models.lasso import PathResult, _as_tensor, _linspace
+from .mesh import all_gather, make_mesh
 
 BIG = 9999.0
 
@@ -385,6 +393,19 @@ def _keep(active, old: _ConsensusState, new: _ConsensusState):
 _MOVING = ("x", "y", "z", "r2_local", "it", "done")
 
 
+def _route(dev, graph_safe: bool, mesh=None) -> str:
+    """How the chunks run: "graph" (one CUDA graph per chunk) on a CUDA
+    device when every hook is capturable and so is the mesh
+    (:attr:`~admm_tpu_torch.parallel.mesh.Mesh.capturable`: its local
+    positions on one device, and no collective or NCCL's); "eager" (op by
+    op) otherwise: gloo's collectives run on the host, and a graph
+    captures the current device's work only."""
+    if (graph_safe and torch.device(dev).type == "cuda"
+            and (mesh is None or mesh.capturable)):
+        return "graph"
+    return "eager"
+
+
 def _graphed(advance, chunk, st: _ConsensusState, buf):
     """``advance`` (one chunk, written back into ``st``, ``buf`` and the
     flag in place) as a CUDA graph: captured once, replayed per chunk, so
@@ -408,10 +429,17 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
                      eps_rel, *, nworkers: int, make_x_update: Callable,
                      master_prox: Callable, auto_rho: Callable,
                      trace_len: Optional[int] = None,
-                     graph_safe: bool = True):
+                     graph_safe: bool = True, mesh=None):
     """The consensus path over ``ilams`` from the iterates ``(x0, y0,
     z0)`` (zeros for a cold start, a saved state to resume); the JAX
-    package's ``_consensus_shard`` with one device.
+    package's ``_consensus_shard``.
+
+    ``mesh``: the W workers are dealt to its D positions in contiguous
+    blocks of W/D; this process builds and runs the worker solve of its
+    positions' blocks on their devices (:func:`_mesh_x_update`), and the
+    new x rows are gathered
+    (:func:`~admm_tpu_torch.parallel.mesh.all_gather`) into the replicated
+    (W, p) stack the rest of the iteration reads.
 
     ``make_x_update(Xb, yb, rho) -> x_update(z, y, rho, x_prev)`` builds
     the worker solve with its factorizations cached, ``master_prox(zbar,
@@ -424,7 +452,8 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
     On a CUDA device each chunk is one CUDA graph, captured once per path
     and replayed (:func:`_graphed`), unless ``graph_safe`` is False: a
     hook that reads the host inside an iteration (the SVD's and the
-    Cholesky's error checks, the parallel PAVA's loop) cannot be captured.
+    Cholesky's error checks, the parallel PAVA's loop) cannot be captured,
+    nor can a gloo collective (:func:`_route`).
 
     Returns ``(coefs, niter, (x, y, z, rho), traces)``.
     """
@@ -439,12 +468,14 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
     rho = (scalar(rho0) if rho0 > 0
            else torch.as_tensor(auto_rho(ilams[0]), dtype=dtype,
                                 device=dev).reshape(()))
-    x_update = make_x_update(Xb, yb, rho)
+    x_update = (make_x_update(Xb, yb, rho) if mesh is None
+                else _mesh_x_update(make_x_update, Xb, yb, rho, W, mesh))
 
     def body(st: _ConsensusState):
         x = x_update(st.z, st.y, st.rho, st.x)
-        # The one reduction of the iteration (a sum over workers and,
-        # in the JAX package, an all-reduce over devices).
+        # The one reduction of the iteration: a sum over the workers of
+        # the replicated stack (an all-reduce over devices in the JAX
+        # package).
         g = torch.cat([torch.sum(x + st.y / st.rho, dim=0),
                        torch.stack([torch.sum(x * x), torch.sum(st.y * st.y),
                                     st.r2_local])])
@@ -497,7 +528,9 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
             getattr(st, f).copy_(getattr(new, f))
         more.copy_(flag)
 
-    if graph_safe and dev.type == "cuda":
+    if _route(dev, graph_safe, mesh) == "graph":
+        if mesh is not None:
+            mesh.warm()
         advance = _graphed(advance, chunk, st, buf)
     coefs, niters, bufs = [], [], []
     for lam in ilams:
@@ -523,9 +556,32 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
             (st.x, st.y, st.z, st.rho), traces)
 
 
+def _mesh_x_update(make_x_update, Xb, yb, rho, W: int, mesh):
+    """The worker solve on a mesh: each local position owns a contiguous
+    block of W/D workers; consecutive positions on one device run their
+    blocks as one batch there (one process on one device: the W workers
+    of the call without a mesh), and the new x rows are gathered."""
+    runs = []       # [lo, hi, device] of the device's consecutive blocks
+    for (lo, hi), dev in zip(mesh.local_spans(W), mesh.devices):
+        if runs and runs[-1][1] == lo and runs[-1][2] == dev:
+            runs[-1][1] = hi
+        else:
+            runs.append([lo, hi, dev])
+    parts = [(slice(lo, hi), dev, make_x_update(
+        Xb[lo:hi].to(dev), yb[lo:hi].to(dev), rho.to(dev)))
+        for lo, hi, dev in runs]
+
+    def x_update(z, y, rho_, x_prev):
+        return all_gather([upd(z.to(dev), y[sl].to(dev), rho_.to(dev),
+                               x_prev[sl].to(dev))
+                           for sl, dev, upd in parts], mesh, 0, W)
+
+    return x_update
+
+
 def _consensus_lasso_solver(nworkers: int, tall_block: bool,
                             alpha: float = 1.0, group_prox=None,
-                            trace_len: Optional[int] = None):
+                            trace_len: Optional[int] = None, mesh=None):
     """The Lasso/Enet/group-Lasso instantiation of the engine (same
     worker ridge solves; the master prox selects the penalty)."""
     if callable(group_prox):
@@ -543,24 +599,46 @@ def _consensus_lasso_solver(nworkers: int, tall_block: bool,
         # Auto-rho (reference: src/PADMMLasso.h:199-200).
         auto_rho=lambda lam_first: lam_first / nworkers,
         trace_len=trace_len,
-        graph_safe=getattr(group_prox, "graph_safe", True))
+        graph_safe=getattr(group_prox, "graph_safe", True), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
 # Drivers (partition -> solve -> recover)
 # ---------------------------------------------------------------------------
 
-def _resolve_workers(nworkers: Optional[int], mesh) -> int:
-    """The worker count W on this one device; ``nworkers=None`` is one
-    worker per device of the call, so 1."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (consensus over several devices) is not ported to "
-            "admm_tpu_torch yet")
-    W = 1 if nworkers is None else int(nworkers)
-    if W < 1:
+def _ndevices(device) -> int:
+    """The devices a call without a mesh may span: the CUDA devices for a
+    call on the card, the one CPU otherwise."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1
+
+
+def _resolve_mesh(nworkers: Optional[int], mesh, device="cuda"):
+    """``(W, mesh)`` from the user's worker count and mesh, as the JAX
+    package resolves them: W defaults to the mesh size (or to one worker
+    per device of the call); without a mesh, the auto mesh is the largest
+    device count that divides W (D = 1, no mesh, on one device), and an
+    explicit mesh of D positions needs W a multiple of D."""
+    if nworkers is not None and int(nworkers) < 1:
         raise ValueError("nworkers must be a positive integer")
-    return W
+    if mesh is None:
+        ndev = _ndevices(device)
+        W = ndev if nworkers is None else int(nworkers)
+        D = max(d for d in range(1, min(W, ndev) + 1) if W % d == 0)
+        return W, (make_mesh(D) if D > 1 else None)
+    D = mesh.size
+    W = int(nworkers) if nworkers is not None else D
+    if W % D != 0:
+        raise ValueError(f"nworkers={W} must be a multiple of the "
+                         f"explicit mesh size {D}")
+    return W, mesh
+
+
+def _call_device(mesh, device):
+    """Where a consensus driver puts the data it is given as numpy: the
+    mesh's home device, or ``device``."""
+    return device if mesh is None else mesh.home
 
 
 def _partition_rows(Xs, ys, W: int):
@@ -627,12 +705,16 @@ def parallel_lasso_path(X, y, *, nworkers: Optional[int] = None, mesh=None,
                         _master_prox_override=None,
                         trace_len: Optional[int] = None, weights=None,
                         dtype=torch.float32, device="cuda") -> PathResult:
-    """Consensus-ADMM Lasso/Enet lambda path over W workers on one device.
+    """Consensus-ADMM Lasso/Enet lambda path over W workers.
 
     Same arguments and defaults as ``admm_tpu.parallel_lasso_path``, plus
     ``device`` (tensors stay on their own device, anything else goes to
-    ``device``).  ``nworkers`` defaults to 1; ``mesh`` (several devices)
-    is not ported and raises.  ``alpha < 1`` is the Elastic Net by
+    ``device``, or to the mesh's home device).  ``mesh``
+    (:func:`admm_tpu_torch.parallel.mesh.make_mesh`) deals the workers to
+    its D positions, W/D each; ``nworkers`` defaults to the mesh size, or
+    to one worker per device of the call (1 on one device), and a worker
+    count without a mesh takes the largest device count that divides it
+    (:func:`_resolve_mesh`).  ``alpha < 1`` is the Elastic Net by
     consensus (an extension: the reference parallelizes only the Lasso,
     reference: src/ParLasso.cpp).  ``weights`` scale the rows by sqrt(w)
     in the standardization, so the worker ridge solves are weighted.
@@ -641,8 +723,8 @@ def parallel_lasso_path(X, y, *, nworkers: Optional[int] = None, mesh=None,
     docstring): the Boyd primal test certifies the previous iterate, and
     the returned one has run one further refining iteration.
     """
-    W = _resolve_workers(nworkers, mesh)
-    X = _as_tensor(X, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(X, device))
+    X = _as_tensor(X, dtype, _call_device(mesh, device))
     y = _as_tensor(y, dtype, X.device).reshape(-1)
     n, p = X.shape
     if lambda_min_ratio is None:
@@ -674,7 +756,7 @@ def parallel_lasso_path(X, y, *, nworkers: Optional[int] = None, mesh=None,
     Xb, yb, rows_w = _partition_rows(Xs, ys, W)
     trace_len = None if trace_len is None else int(trace_len)
     solver = _consensus_lasso_solver(W, rows_w >= p, float(alpha),
-                                     _master_prox_override, trace_len)
+                                     _master_prox_override, trace_len, mesh)
     coefs, niter, _, traces = _run_consensus(Xb, yb, ilams, rho, maxit,
                                              eps_abs, eps_rel, solver=solver)
     beta0, coef = recover(stats, coefs, standardize_x=standardize,
@@ -694,8 +776,8 @@ def parallel_group_lasso_path(X, y, groups, *, weights=None,
     if not 0.0 <= l1_ratio <= 1.0:
         raise ValueError("l1_ratio must be in [0, 1]")
     groups_t, weights_t = normalize_groups(
-        groups, _ncol(X), weights, dtype, _device_of(X, kw.get("device",
-                                                                "cuda")))
+        groups, _ncol(X), weights, dtype, _device_of(X, _call_device(
+            kw.get("mesh"), kw.get("device", "cuda"))))
     return parallel_lasso_path(
         X, y, _master_prox_override=(groups_t, weights_t, float(l1_ratio)),
         **kw)
@@ -721,8 +803,8 @@ def parallel_slope_path(X, y, *, lam_seq=None, q: float = 0.1,
     if np.any(np.diff(lam_np) > 1e-12) or not lam_np[0] > 0:
         raise ValueError("lam_seq must be nonincreasing with a "
                          "positive largest entry")
-    lam_t = torch.as_tensor(lam_np, dtype=dtype,
-                            device=_device_of(X, kw.get("device", "cuda")))
+    lam_t = torch.as_tensor(lam_np, dtype=dtype, device=_device_of(
+        X, _call_device(kw.get("mesh"), kw.get("device", "cuda"))))
 
     def make_master(W):
         def prox(zbar, lam, rho):
@@ -758,8 +840,8 @@ def parallel_constrained_lasso_path(
     solver tolerance."""
     from ..models.genlasso import center_weight
 
-    W = _resolve_workers(nworkers, mesh)
-    X = _as_tensor(X, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(X, device))
+    X = _as_tensor(X, dtype, _call_device(mesh, device))
     dev = X.device
     y = _as_tensor(y, dtype, dev).reshape(-1)
     C = _as_tensor(C, dtype, dev)
@@ -795,7 +877,8 @@ def parallel_constrained_lasso_path(
                      make_x_update=_conlasso_x_update_maker(C, d),
                      master_prox=_lasso_master_prox(W),
                      auto_rho=lambda lam_first: lam_first / W,
-                     trace_len=None if trace_len is None else int(trace_len))
+                     trace_len=None if trace_len is None else int(trace_len),
+                     mesh=mesh)
     coefs, niter, _, traces = _run_consensus(Xb, yb, ilams, rho, maxit,
                                              eps_abs, eps_rel, solver=solver)
     return PathResult(lambdas=lams, beta0=mean_y - coefs @ mean_x,
@@ -837,8 +920,8 @@ def parallel_bp_fit(A, b, *, nworkers: Optional[int] = None, mesh=None,
         eps_rel = 1e-4 if dtype == torch.float64 else 2e-5
     if rho is None:
         rho = 5.0
-    W = _resolve_workers(nworkers, mesh)
-    A = _as_tensor(A, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(A, device))
+    A = _as_tensor(A, dtype, _call_device(mesh, device))
     b = _as_tensor(b, dtype, A.device).reshape(-1)
     n, p = A.shape
     if p <= n:
@@ -851,7 +934,8 @@ def parallel_bp_fit(A, b, *, nworkers: Optional[int] = None, mesh=None,
                      make_x_update=partial(_bp_x_update, jitter=jitter),
                      master_prox=_bp_master_prox(W),
                      auto_rho=lambda lam_first: 1.0,
-                     trace_len=None if trace_len is None else int(trace_len))
+                     trace_len=None if trace_len is None else int(trace_len),
+                     mesh=mesh)
     lams = torch.ones((1,), dtype=dtype, device=A.device)  # one solve
     coefs, niter, _, traces = _run_consensus(Ab, bb, lams, rho, maxit,
                                              eps_abs, eps_rel, solver=solver)
@@ -879,8 +963,8 @@ def parallel_glm_lasso_path(
     from ..models.glm import GLMFamily, prep_design, recover_glm
 
     fam = family() if not isinstance(family, GLMFamily) else family
-    W = _resolve_workers(nworkers, mesh)
-    X = _as_tensor(X, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(X, device))
+    X = _as_tensor(X, dtype, _call_device(mesh, device))
     dev = X.device
     y = _as_tensor(y, dtype, dev).reshape(-1)
     n, p = X.shape
@@ -923,7 +1007,7 @@ def parallel_glm_lasso_path(
         auto_rho=lambda lam_first: (fam.curvature_bound or 1.0) / W,
         trace_len=None if trace_len is None else int(trace_len),
         # The exact Hessian's batched Cholesky stays out of the graph.
-        graph_safe=hessian == "fixed")
+        graph_safe=hessian == "fixed", mesh=mesh)
     # The GLM lam is on the user's scale (the 1/n is inside the loss).
     coefs_a, niter, _, traces = _run_consensus(Xb, yb, lams, rho, maxit,
                                                eps_abs, eps_rel,
@@ -977,8 +1061,8 @@ def parallel_multinomial_lasso_path(
     from ..models.glm import prep_design
     from ..models.multinomial import MNPathResult, mn_recover
 
-    W = _resolve_workers(nworkers, mesh)
-    X = _as_tensor(X, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(X, device))
+    X = _as_tensor(X, dtype, _call_device(mesh, device))
     dev = X.device
     if isinstance(y, torch.Tensor):
         y = y.detach().cpu().numpy()
@@ -1019,7 +1103,8 @@ def parallel_multinomial_lasso_path(
                                     bool(grouped)),
         # Per-class curvature scale 1/(4C) (the serial default), split
         # over W workers.
-        auto_rho=lambda lam_first: 1.0 / (4.0 * C * W))
+        auto_rho=lambda lam_first: 1.0 / (4.0 * C * W),
+        mesh=mesh)
     zeros = torch.zeros((W, q * C), dtype=dtype, device=dev)
     coefs_flat, niter, _, _ = _run_consensus(
         Xb, yb, lams, rho, maxit, eps_abs, eps_rel, solver=solver,
@@ -1053,8 +1138,8 @@ def parallel_multitask_lasso_path(
                          "does not support it")
     if not (0.0 < alpha <= 1.0):
         raise ValueError("alpha must be in (0, 1]")
-    W = _resolve_workers(nworkers, mesh)
-    X = _as_tensor(X, dtype, device)
+    W, mesh = _resolve_mesh(nworkers, mesh, _device_of(X, device))
+    X = _as_tensor(X, dtype, _call_device(mesh, device))
     Y = _as_tensor(Y, dtype, X.device)
     if Y.dim() != 2:
         raise ValueError("Y must be (n, K)")
@@ -1081,7 +1166,7 @@ def parallel_multitask_lasso_path(
         # (reference: src/PADMMLasso.h:199-200).
         auto_rho=lambda lam_first: lam_first / W,
         # The SVT's SVD reads its error flag on the host.
-        graph_safe=penalty == "rows")
+        graph_safe=penalty == "rows", mesh=mesh)
     zeros = torch.zeros((W, p * K), dtype=dtype, device=X.device)
     coefs_flat, niter, _, _ = _run_consensus(
         Xb, Yb, ilams, rho, maxit, eps_abs, eps_rel, solver=solver,

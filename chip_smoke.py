@@ -3,7 +3,7 @@
 Lasso/Elastic-Net lambda path, LAD, Basis Pursuit, the Dantzig selector,
 the penalized GLM paths (logistic, Huber, Poisson), cross-validation and
 prediction, the families that run on the engines, the glmnet front end,
-consensus ADMM, and the checkpointed drivers and the profiler.
+consensus ADMM, the checkpointed drivers and the profiler, and meshes.
 
     python3 chip_smoke.py
 
@@ -49,7 +49,11 @@ Phases, in order:
    and "diagnostics" (:func:`diag_phase`: the 17 checkpointed drivers
    whole, stopped and resumed, to the bit, on full-size problems; the
    native host packer; a profiler trace that must hold the tall kernels;
-   the memory snapshot);
+   the memory snapshot) and "meshes" (:func:`meshes_phase`: consensus,
+   ``fold_mesh`` and every ``data_mesh`` entry point on a mesh of
+   positions on ``cuda:0``, a NCCL group of one rank, and two processes
+   on ``cuda:0`` joined by gloo, which this script starts as
+   ``chip_smoke.py --mesh-worker``);
 5. kernel and plain times, and each entry point end to end: median of 5
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
@@ -1966,6 +1970,344 @@ def diag_phase(torch, smoke, record, X, y, Xw, yw):
     return trace_ms
 
 
+# The two-rank gloo run's tall problem (n, p, nonzero slopes).
+MESH_TALL = (500_000, 1000, 100)
+# A rank's peak device allocation against the one-process run's.
+MESH_MEMORY_SHARE = 0.6
+# A tall data_mesh path (kernel kept) against its run without a mesh.
+MESH_TALL_BAR = 1e-5
+
+
+def tall_problem32(n, p, m, seed=123):
+    """:func:`make_problem`'s generator drawn in float32 (X alone is
+    ``4 n p`` bytes: 2.0 GB at 500,000 x 1000)."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros(p, np.float32)
+    b[rng.choice(p, m, replace=False)] = rng.uniform(-1, 1, m)
+    X = rng.standard_normal((n, p), dtype=np.float32)
+    y = 5.0 + X @ b + rng.standard_normal(n, dtype=np.float32)
+    return X, y.astype(np.float32)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_worker(rank, world, port, out) -> int:
+    """One rank of the two-process run of :func:`meshes_phase` (started
+    as ``chip_smoke.py --mesh-worker RANK WORLD PORT OUT``): a gloo group
+    over ``tcp://127.0.0.1:PORT``, one mesh position on ``cuda:0``; the
+    consensus flagship at W = 4, the flagship CV with 10 folds (counting
+    this rank's fold solves) and the tall ``MESH_TALL`` path, batch and
+    scan, with this rank's peak device allocation.  Writes ``OUT``
+    (.npz); any failure exits nonzero."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import admm_tpu_torch as t
+    from admm_tpu_torch.models import lasso
+    from admm_tpu_torch.parallel.mesh import make_mesh
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh(devices=["cuda:0"], group=dist.group.WORLD)
+    res = {}
+    X, y = make_problem()
+    t0 = time.perf_counter()
+    cons = t.parallel_lasso_path(X, y, nworkers=4, mesh=mesh)
+    torch.cuda.synchronize()
+    res["cons_ms"] = (time.perf_counter() - t0) * 1e3
+    res["cons_coef"], res["cons_niter"] = to_np(cons.coef), to_np(cons.niter)
+    solves = []
+    real = lasso._path_user
+
+    def counted(*a, **kw):
+        solves.append(1)
+        return real(*a, **kw)
+
+    lasso._path_user = counted
+    t0 = time.perf_counter()
+    cv = t.cv_lasso_path(X, y, nfolds=10, fold_mesh=mesh)
+    torch.cuda.synchronize()
+    res["cv_ms"] = (time.perf_counter() - t0) * 1e3
+    lasso._path_user = real
+    res["cv_cvm"], res["cv_solves"] = cv.cvm, len(solves)
+    del X, y
+    Xt, yt = tall_problem32(*MESH_TALL)
+    for mode in ("batch", "scan"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = t.lasso_path(Xt, yt, path_mode=mode, data_mesh=mesh)
+        torch.cuda.synchronize()
+        res[f"{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+        res[f"{mode}_peak"] = torch.cuda.max_memory_allocated() - held
+        res[f"{mode}_coef"], res[f"{mode}_niter"] = (to_np(r.coef),
+                                                     to_np(r.niter))
+        del r
+    np.savez(out, **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def meshes_phase(torch, smoke, record, X, y, Xw, yw, A, b):
+    """Phase 4h, "meshes" (``admm_tpu_torch/parallel/mesh.py``), on the
+    one card: (1) one process, a mesh of positions on ``cuda:0``: the
+    consensus flagship at W = 8 over 4 positions and the flagship CV over
+    5 (bits and niter equal to the runs without a mesh; the CV 11 tall
+    batch launches), then each ``data_mesh`` entry point on an earlier
+    phase's problem, held to its run without a mesh and to float64 on the
+    card (``PATH_BAR`` or the family's bar), the tall paths launching
+    their kernel once and within ``MESH_TALL_BAR`` and niter 1 of the run
+    without a mesh, and the others launching nothing; (2) a NCCL group of one
+    rank in this process: the consensus flagship at W = 4 with the
+    all-gather captured in the chunk's CUDA graph, and the flagship
+    ``lasso_path(data_mesh=...)``, both equal to the runs without a mesh
+    to the bit; (3) two processes on ``cuda:0`` joined by gloo
+    (:func:`mesh_worker`): the consensus flagship at W = 4 (atol 1e-5,
+    niter identical to one process), the flagship CV (cvm to the bit, 5
+    fold solves a rank) and the ``MESH_TALL`` problem batch and scan
+    (1e-4 and niter within 3 of one process, each rank's peak allocation
+    over what it held before the call at most ``MESH_MEMORY_SHARE`` of
+    the one-process run's, measured the same way).  Both ranks
+    share the one H100: nothing here measures scaling across GPUs."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    import admm_tpu_torch as t
+    from admm_tpu_torch.parallel import consensus as cons
+    from admm_tpu_torch.parallel.mesh import make_mesh
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(f"phase: meshes (times on {smi.stdout.strip() or 'an unnamed card'}"
+          ")", flush=True)
+    t_phase = time.perf_counter()
+    counted = partial(counted_call, torch, smoke, record)
+    f64 = dict(dtype=torch.float64)
+    dev = torch.device("cuda:0")
+
+    def same_bits(label, a, b, fields=("coef", "niter")):
+        ok = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+        smoke.check(ok, f"{label}: bits equal to the run without a mesh")
+
+    # -- (1) One process, positions sharing cuda:0. ------------------------
+    m4, m5 = (make_mesh(k, devices=[dev] * k) for k in (4, 5))
+    plain = t.parallel_lasso_path(X, y, nworkers=8)
+    meshed, ms = counted("parallel_lasso_path(X, y, nworkers=8, mesh=4)",
+                         lambda: t.parallel_lasso_path(X, y, nworkers=8,
+                                                       mesh=m4), {})
+    same_bits("consensus flagship W = 8 on 4 positions", meshed, plain)
+    print(f"  consensus flagship W = 8 on 4 positions of cuda:0: {ms:.1f} ms"
+          f" (host clock, first call), route "
+          f"{cons._route(dev, True, m4)}, niter total "
+          f"{int(meshed.niter.sum())}", flush=True)
+    cv_plain = t.cv_lasso_path(X, y, nfolds=10)
+    cv_mesh, ms = counted("cv_lasso_path(X, y, nfolds=10, fold_mesh=5)",
+                          lambda: t.cv_lasso_path(X, y, nfolds=10,
+                                                  fold_mesh=m5),
+                          {"tall_path_batch": 11})
+    smoke.check(np.array_equal(cv_mesh.cvm, cv_plain.cvm)
+                and cv_mesh.lambda_min == cv_plain.lambda_min,
+                "cv_lasso_path on 5 positions: cvm bits equal")
+    print(f"  cv_lasso_path flagship, 10 folds on 5 positions: {ms:.1f} ms "
+          "(host clock, first call)", flush=True)
+
+    Xl, yl = lad_problem(1000, 500)
+    Xd, yd = make_problem(*DANTZIG_SHAPE[:2], 20)
+    Xg, yg = glm_problem(*GLM_SHAPE[:2])
+    P = second_problems()
+    G = last_problems()["glasso200"]
+    l1 = dict(eps_abs=EPS_L1, eps_rel=EPS_L1)
+    # (label, call(**kw), the kernel its mesh run launches or None,
+    #  fields, bar against float64)
+    cases = [
+        ("lasso_path(X, y)  [tall scan]", lambda **kw: t.lasso_path(
+            X, y, **kw), "tall_path_scan", ("coef", "beta0"), PATH_BAR),
+        ("lasso_path(X, y, batch)  [tall batch]", lambda **kw: t.lasso_path(
+            X, y, path_mode="batch", **kw), "tall_path_batch",
+         ("coef", "beta0"), PATH_BAR),
+        ("lasso_path(Xw, yw, batch)  [wide, engine]",
+         lambda **kw: t.lasso_path(Xw, yw, path_mode="batch", **kw), None,
+         ("coef", "beta0"), PATH_BAR),
+        ("dantzig_path(Xd, yd)", lambda **kw: t.dantzig_path(
+            Xd, yd, nlambda=DANTZIG_SHAPE[2], path_mode="batch", **kw), None,
+         ("coef", "beta0"), PATH_BAR),
+        ("lad_fit(Xl, yl, intercept=False)", lambda **kw: t.lad_fit(
+            Xl, yl, intercept=False, **l1, **kw), None, ("coef",),
+         LAD_COEF_BAR),
+        ("quantile_fit(Xl, yl, tau=0.3)", lambda **kw: t.quantile_fit(
+            Xl, yl, tau=0.3, **l1, **kw), None, ("coef",), LAD_COEF_BAR),
+        ("bp_fit(A, b)", lambda **kw: t.bp_fit(A, b, **l1, **kw), None,
+         ("coef",), BP_F64_BAR),
+        ("logistic_lasso_path(Xg, yg)", lambda **kw: t.logistic_lasso_path(
+            Xg, yg["logistic"], nlambda=GLM_SHAPE[2], **kw), None,
+         ("coef", "beta0"), PATH_BAR),
+        ("group_lasso_path(Xd, yd, groups of 10)",
+         lambda **kw: t.group_lasso_path(
+             Xd, yd, np.arange(Xd.shape[1]) // 10, nlambda=20, **kw), None,
+         ("coef", "beta0"), PATH_BAR),
+        ("fused_lasso_path(Xd, yd)", lambda **kw: t.fused_lasso_path(
+            Xd, yd, nlambda=20, **kw), None, ("coef", "beta0"), 2e-3),
+        ("sqrt_lasso_path(Xs, ys)", lambda **kw: t.sqrt_lasso_path(
+            *P["sqrt"], nlambda=30, **kw), None, ("coef", "beta0"),
+         PATH_BAR),
+        ("svm_path(Xv, yv)", lambda **kw: t.svm_path(
+            *P["svm"], nC=20, **kw), None, ("coef", "intercept"), PATH_BAR),
+        ("multinomial_lasso_path(Xc, yc)",
+         lambda **kw: t.multinomial_lasso_path(*P["multinomial"],
+                                               nlambda=50, **kw), None,
+         ("coef", "beta0"), PATH_BAR),
+        ("multitask_lasso_path(Xm, Ym)",
+         lambda **kw: t.multitask_lasso_path(*P["multitask"], nlambda=50,
+                                             **kw), None,
+         ("coef", "beta0"), PATH_BAR),
+        ("glasso_path(G)  [2000 x 200]", lambda **kw: t.glasso_path(
+            G, nlambda=10, **kw), None, ("precision",), 5e-3),
+    ]
+    for label, call, kernel, fields, bar in cases:
+        out, ms = counted(label + " on 4 positions",
+                          lambda: call(data_mesh=m4),
+                          {kernel: 1} if kernel else {})
+        one = call()
+        ref = call(**f64)
+        g_one = max(gap_of(getattr(out, f), getattr(one, f)) for f in fields)
+        g_64 = max(gap_of(getattr(out, f), getattr(ref, f)) for f in fields)
+        smoke.check(bool(np.isfinite(to_np(getattr(out, fields[0]))).all()),
+                    f"{label} on 4 positions: finite")
+        smoke.check(g_one <= bar and g_64 <= bar,
+                    f"{label} on 4 positions: within {bar} of the run "
+                    f"without a mesh ({g_one:.3e}) and of float64 "
+                    f"({g_64:.3e})")
+        nit = (to_np(out.niter).astype(np.int64).reshape(-1),
+               to_np(one.niter).astype(np.int64).reshape(-1))
+        dn = int(np.abs(nit[0] - nit[1]).max())
+        if kernel is not None:
+            # The tall route keeps its kernel: the port's kernel-to-engine
+            # bar against the run without a mesh.
+            smoke.check(g_one <= MESH_TALL_BAR and dn <= 1,
+                        f"{label} on 4 positions: within {MESH_TALL_BAR} "
+                        f"({g_one:.3e}) and niter within 1 ({dn}) of the "
+                        "run without a mesh")
+        print(f"  {label} on 4 positions: {ms:.1f} ms (host clock, first "
+              f"call), niter total {int(nit[0].sum())} (without a mesh "
+              f"{int(nit[1].sum())}, largest gap {dn}), gap {g_one:.3e} to "
+              f"the run without a mesh, {g_64:.3e} to float64", flush=True)
+
+    # -- (2) A NCCL group of one rank. -------------------------------------
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mn = make_mesh(group=dist.group.WORLD)
+        route = cons._route(dev, True, mn)
+        smoke.check(route == "graph", f"NCCL one rank: route {route}")
+        plain = t.parallel_lasso_path(X, y, nworkers=4)
+        out, ms = counted("parallel_lasso_path(nworkers=4), NCCL mesh",
+                          lambda: t.parallel_lasso_path(X, y, nworkers=4,
+                                                        mesh=mn), {})
+        same_bits("NCCL one rank: consensus flagship W = 4", out, plain)
+        print(f"  NCCL group of one rank: consensus flagship W = 4, route "
+              f"{route} (the all-gather inside the chunk's graph), "
+              f"{ms:.1f} ms (host clock, first call)", flush=True)
+        plain = t.lasso_path(X, y)
+        out, ms = counted("lasso_path(X, y, data_mesh=NCCL)",
+                          lambda: t.lasso_path(X, y, data_mesh=mn),
+                          {"tall_path_scan": 1})
+        same_bits("NCCL one rank: lasso_path flagship data_mesh", out, plain)
+    finally:
+        dist.destroy_process_group()
+
+    # -- (3) Two processes on cuda:0 joined by gloo. -----------------------
+    import shutil
+
+    (ROOT / "admm_tpu_torch" / "_build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=str(ROOT / "admm_tpu_torch" / "_build"))
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--mesh-worker", str(r), "2", port, outs[r]])
+             for r in range(2)]
+    one = {}
+    try:
+        # The one-process runs the ranks are held to, meanwhile.
+        c1 = t.parallel_lasso_path(X, y, nworkers=4)
+        one["cons"] = (to_np(c1.coef), to_np(c1.niter))
+        Xt, yt = tall_problem32(*MESH_TALL)
+        for mode in ("batch", "scan"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            r = t.lasso_path(Xt, yt, path_mode=mode)
+            torch.cuda.synchronize()
+            one[mode] = (to_np(r.coef), to_np(r.niter),
+                         torch.cuda.max_memory_allocated() - held)
+            del r
+        del Xt, yt
+        torch.cuda.empty_cache()
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    print(f"  two gloo processes on cuda:0: {time.perf_counter() - t0:.1f} s"
+          f" with the one-process runs (host clock), exit codes {rcs}",
+          flush=True)
+    smoke.check(rcs == [0, 0], f"two-process mesh: worker exit codes {rcs}")
+    if rcs == [0, 0]:
+        ranks = [np.load(o) for o in outs]
+        for r, res in enumerate(ranks):
+            gap = float(np.abs(res["cons_coef"] - one["cons"][0]).max())
+            smoke.check(gap <= 1e-5 and np.array_equal(res["cons_niter"],
+                                                       one["cons"][1]),
+                        f"rank {r}: consensus W = 4 over 2 ranks within 1e-5"
+                        f" ({gap:.3e}), niter identical")
+            smoke.check(np.array_equal(res["cv_cvm"], cv_plain.cvm)
+                        and int(res["cv_solves"]) == 5,
+                        f"rank {r}: CV cvm bits equal, "
+                        f"{int(res['cv_solves'])} fold solves")
+            for mode in ("batch", "scan"):
+                coef, niter, peak = one[mode]
+                gap = float(np.abs(res[f"{mode}_coef"] - coef).max())
+                dn = int(np.abs(res[f"{mode}_niter"].astype(np.int64)
+                                - niter.astype(np.int64)).max())
+                share = float(res[f"{mode}_peak"]) / peak
+                smoke.check(gap <= 1e-4 and dn <= 3,
+                            f"rank {r}: {MESH_TALL[0]} x {MESH_TALL[1]} "
+                            f"{mode} within 1e-4 ({gap:.3e}), niter within "
+                            f"3 ({dn})")
+                smoke.check(share <= MESH_MEMORY_SHARE,
+                            f"rank {r}: {mode} peak allocation "
+                            f"{share:.3f} of one process's")
+                print(f"  rank {r}: {MESH_TALL[0]} x {MESH_TALL[1]} {mode}: "
+                      f"{float(res[f'{mode}_ms']):.1f} ms (host clock), peak "
+                      f"{res[f'{mode}_peak'] / 2**30:.2f} GiB against one "
+                      f"process's {peak / 2**30:.2f} GiB ({share:.3f}), gap "
+                      f"{gap:.3e}, niter gap {dn}", flush=True)
+            print(f"  rank {r}: consensus W = 4 {float(res['cons_ms']):.1f} "
+                  f"ms (route eager: gloo), CV {float(res['cv_ms']):.1f} ms "
+                  "(host clock)", flush=True)
+        same = all(np.array_equal(ranks[0][k], ranks[1][k])
+                   for k in ranks[0].files if not k.endswith(("_ms",
+                                                              "_peak")))
+        smoke.check(same, "both ranks hold the same results")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 'meshes': {time.perf_counter() - t_phase:.1f} s on the "
+          "host clock (both ranks shared the one H100: no scaling across "
+          "GPUs is measured)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2484,6 +2826,9 @@ def main() -> int:
     # 4g. Checkpoints and the profiler.
     trace_ms = diag_phase(torch, smoke, record, X, y, Xw, yw)
 
+    # 4h. Meshes.
+    meshes_phase(torch, smoke, record, X, y, Xw, yw, A, B[0])
+
     # 5. Times.
     print("phase: times (median of 5 after a warm-up, 3 where said; CUDA "
           "events)", flush=True)
@@ -2810,4 +3155,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -13,9 +13,12 @@ into its own ``admm_tpu_torch/_build/``.  Every run times, with CUDA events
 on the hat matrices of ``admm_lad(intercept=False).fit()`` at 1000 x 500
 and 5000 x 1000, and ``tall_path_batch`` on the inputs of
 ``admm_lasso().fit()`` at 10000 x 1000 with 100 lambdas (the problems of
-``chip_smoke.py``, seed 123).  It prints one line per run and kernel (ms,
-iterations, us per iteration of the slowest lane) and the card's name and
-power limit.  Needs one CUDA card and ``nvcc``.
+``chip_smoke.py``, seed 123).  Beside the kernels it times the consensus
+loop, which has none: ``parallel_lasso_path`` on the flagship at W = 2 and
+8 and on the wide 1000 x 2000 problem at W = 2, end to end on the host
+clock (median of 3 after a warm-up).  It prints one line per run and
+call (ms, iterations, us per iteration of the slowest lane or path) and
+the card's name and power limit.  Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ def _worker(tree: str) -> dict:
     from admm_tpu_torch.kernels import lad, tall_path
     from admm_tpu_torch.models.lad import _hat_matrix, _lad_setup
     from admm_tpu_torch.models.lasso import _auto_lambdas, _tall_setup
-    from chip_smoke import cuda_median_ms, lad_problem, make_problem
+    from chip_smoke import (cuda_median_ms, host_median_ms, lad_problem,
+                            make_problem)
 
     assert Path(admm_tpu_torch.__file__).resolve().is_relative_to(
         Path(tree).resolve()), admm_tpu_torch.__file__
@@ -70,6 +74,15 @@ def _worker(tree: str) -> dict:
     ms = cuda_median_ms(torch, lambda: tall_path.tall_path_batch(*args))
     out["tall_path_batch 1000 x 1000 x 100"] = dict(
         ms=ms, iters=int(niter.sum()), slowest=int(niter.max()))
+    Xw, yw = make_problem(1000, 2000, 100)
+    for label, (A, b, W) in {"consensus flagship W = 2": (X, y, 2),
+                             "consensus flagship W = 8": (X, y, 8),
+                             "consensus wide W = 2": (Xw, yw, 2)}.items():
+        ms, res = host_median_ms(torch, lambda: admm_tpu_torch.
+                                 parallel_lasso_path(A, b, nworkers=W),
+                                 reps=3)
+        it = int(res.niter.sum())
+        out[label] = dict(ms=ms, iters=it, slowest=it)
     return out
 
 

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import admm_tpu_torch as t
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.core.engine import ADMMState as JADMMState
 from admm_tpu.core.engine import make_state as jmake_state
 from admm_tpu.diag import checkpoint as jck
@@ -394,7 +395,13 @@ def test_consensus_matches_jax_and_resumes(jax_ref, tmp_path):
     assert_path_close(got, plain, 2e-3)
     crash_and_resume(diag.checkpointed_parallel_lasso_path, tmp_path, X,
                      y, fields=("coef", "beta0", "niter"), **kw, **F32)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        diag.checkpointed_parallel_lasso_path(
-            X, y, checkpoint=str(tmp_path / "m.npz"), mesh=object(), **kw,
-            **F32)
+    # On a 2-position mesh (two workers each): the path, stopped and
+    # resumed, is the no-mesh float32 path to the bit.
+    mesh = torch_mesh(2, devices=["cpu"] * 2)
+    meshed = crash_and_resume(diag.checkpointed_parallel_lasso_path,
+                              tmp_path, X, y, fields=("coef", "niter"),
+                              mesh=mesh, **kw, **F32)
+    whole = diag.checkpointed_parallel_lasso_path(
+        X, y, checkpoint=str(tmp_path / "m.npz"), **kw, **F32)
+    assert torch.equal(meshed.coef, whole.coef)
+    assert torch.equal(meshed.niter, whole.niter)

@@ -22,6 +22,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.parallel import consensus as jcons
 from admm_tpu.parallel.mesh import make_mesh
 from admm_tpu_torch.interop import from_reference, to_reference
@@ -370,9 +371,17 @@ def test_builder_errors_as_reference(data, case):
 
 
 def test_mesh_is_not_ported_and_default_is_one_worker(data):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        admm_tpu_torch.parallel_lasso_path(data["X"], data["y"],
-                                           mesh=object(), device="cpu")
+    """``mesh=`` deals the workers over its positions: two per position
+    on a 2-position CPU mesh give the bits of W = 4 without one
+    (``tests/test_torch_mesh_cv.py`` holds it against the JAX package's
+    meshes); without a mesh the default is one worker per device, so 1
+    on the CPU."""
+    kw = dict(nworkers=4, nlambda=3, device="cpu")
+    meshed = admm_tpu_torch.parallel_lasso_path(
+        data["X"], data["y"], mesh=torch_mesh(2, devices=["cpu"] * 2), **kw)
+    plain = admm_tpu_torch.parallel_lasso_path(data["X"], data["y"], **kw)
+    assert torch.equal(meshed.coef, plain.coef)
+    assert torch.equal(meshed.niter, plain.niter)
     one = admm_tpu_torch.parallel_lasso_path(data["X"], data["y"],
                                              nlambda=3, device="cpu")
     ref = admm_tpu.parallel_lasso_path(data["X"], data["y"], nworkers=1,

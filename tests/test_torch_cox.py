@@ -22,6 +22,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu_torch.interop import from_reference
 from admm_tpu_torch.models import cox
 
@@ -250,5 +251,8 @@ def test_cv_cox_path_errors(surv):
                {"type_measure": "C", "start": extra["start"]}):
         with pytest.raises(ValueError):
             admm_tpu_torch.cv_cox_path(X, t, d, **kw, **F64)
-    with pytest.raises(NotImplementedError):
-        admm_tpu_torch.cv_cox_path(X, t, d, fold_mesh=object(), **F64)
+    # fold_mesh needs nfolds a multiple of its size (the default 10
+    # folds on 4 positions).
+    with pytest.raises(ValueError, match="multiple of the fold_mesh"):
+        admm_tpu_torch.cv_cox_path(
+            X, t, d, fold_mesh=torch_mesh(4, devices=["cpu"] * 4), **F64)

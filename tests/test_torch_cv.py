@@ -18,6 +18,7 @@ from admm_tpu.models import cv as jcv
 from admm_tpu_torch import kernels
 from admm_tpu_torch.kernels import tall_path, wide_path
 from admm_tpu_torch.models import cv as tcv
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 
 torch.set_num_threads(1)
 
@@ -323,12 +324,19 @@ def test_validation_errors_match_reference(tall, case):
 
 
 def test_fold_mesh_is_not_ported(tall):
+    """``fold_mesh`` deals the folds over a mesh's positions: each CV on a
+    2-position CPU mesh is its CV without one, to the bit
+    (``tests/test_torch_mesh_cv.py`` holds it against the JAX
+    package's)."""
     X, y, foldid = tall
+    mesh = torch_mesh(2, devices=["cpu"] * 2)
     for fn in (tcv.cv_lasso_path, tcv.cv_logistic_path,
                tcv.cv_dantzig_path):
-        with pytest.raises(NotImplementedError, match="fold_mesh"):
-            fn(X, y, foldid=foldid, nlambda=3, fold_mesh=object(),
-               device="cpu")
+        got = fn(X, y, foldid=foldid, nlambda=3, fold_mesh=mesh,
+                 device="cpu")
+        ref = fn(X, y, foldid=foldid, nlambda=3, device="cpu")
+        np.testing.assert_array_equal(got.cvm, ref.cvm)
+        assert got.lambda_min == ref.lambda_min
 
 
 def test_no_launch_is_counted_on_the_cpu(tall):

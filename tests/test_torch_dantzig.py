@@ -20,6 +20,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 
 torch.set_num_threads(1)
 
@@ -185,15 +186,18 @@ def test_dantzig_builder_validates_like_reference(tall, case):
 ])
 def test_dantzig_options_not_ported_raise(tall, option):
     """What is not ported raises by name; the traced path is ported and
-    must record one trace per lambda, and ``fit.plot()`` must draw the
-    path."""
+    must record one trace per lambda, ``data_mesh`` on a 4-position CPU
+    mesh agrees with the path without one (its parity with the JAX
+    package's is ``tests/test_torch_mesh.py``), and ``fit.plot()`` must
+    draw the path."""
     X, y = tall
     t = admm_tpu_torch
     builder = t.admm_dantzig(X, y, device="cpu")
     calls = {
         "trace_len": lambda: t.dantzig_path(X, y, trace_len=8, device="cpu"),
-        "data_mesh": lambda: t.dantzig_path(X, y, data_mesh=object(),
-                                            device="cpu"),
+        "data_mesh": lambda: t.dantzig_path(
+            X, y, nlambda=5, data_mesh=torch_mesh(4, devices=["cpu"] * 4),
+            device="cpu"),
         "builder_trace": lambda: builder.penalty(nlambda=2).opts(
             trace=8).fit(),
         # The builder takes glmnet's options since the Lasso ports them;
@@ -208,6 +212,11 @@ def test_dantzig_options_not_ported_raise(tall, option):
         res = calls[option]()
         assert res.trace.shape[1:] == (8, 5)
         assert np.isfinite(np.asarray(res.trace)[:, 0]).any()
+        return
+    if option == "data_mesh":
+        ref = t.dantzig_path(X, y, nlambda=5, device="cpu")
+        np.testing.assert_allclose(calls[option]().coef.numpy(),
+                                   ref.coef.numpy(), atol=1e-4)
         return
     if option == "fit_plot":
         import matplotlib

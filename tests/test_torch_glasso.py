@@ -26,6 +26,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.models import glasso as jglasso
 from admm_tpu_torch.interop import from_reference, to_reference
 from admm_tpu_torch.models import glasso
@@ -215,9 +216,14 @@ def test_glasso_result_round_trips_through_interop(data):
 
 @pytest.mark.parametrize("kw,err", [
     ({"xupdate": "cholesky"}, ValueError), ({"path_mode": "wide"}, ValueError),
-    ({"cov": np.eye(3)}, ValueError), ({"data_mesh": object()},
-                                        NotImplementedError)])
+    ({"cov": np.eye(3)}, ValueError),
+    # data_mesh applies to X, not a precomputed cov.
+    ({"data_mesh": "cov"}, ValueError)])
 def test_glasso_path_errors(data, kw, err):
+    if kw.get("data_mesh") == "cov":
+        kw = dict(cov=np.cov(data.T), data_mesh=torch_mesh(
+            2, devices=["cpu"] * 2))
+        data = None
     with pytest.raises(err):
         admm_tpu_torch.glasso_path(data, **kw, **F64)
     if err is ValueError and "cov" not in kw:

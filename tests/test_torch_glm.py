@@ -24,6 +24,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.models import glm as jglm
 from admm_tpu_torch.kernels import glm as glm_kernel
 from admm_tpu_torch.models import glm as tglm
@@ -408,7 +409,9 @@ ERRORS = {
                    ValueError, "dfmax/pmax exclude even the largest-lambda"),
     # Ported: a traced path runs (and forces "scan"), raising nothing.
     "trace_len": (dict(trace_len=10, nlambda=3), None, None),
-    "data_mesh": (dict(data_mesh=object()), NotImplementedError, "data_mesh"),
+    # Ported: a row-sharded path runs on the engine, raising nothing
+    # (tests/test_torch_mesh.py holds its parity).
+    "data_mesh": (dict(data_mesh="mesh", nlambda=3), None, None),
 }
 
 
@@ -416,9 +419,17 @@ ERRORS = {
 def test_validation_errors(data, label):
     kw, exc, match = ERRORS[label]
     if exc is None:
+        if kw.get("data_mesh") == "mesh":
+            kw = dict(kw, data_mesh=torch_mesh(4, devices=["cpu"] * 4))
         res = admm_tpu_torch.logistic_lasso_path(
             data[0], _y(data, "binomial"), device="cpu", **kw)
-        assert res.trace.shape == (3, kw["trace_len"], 5)
+        if "trace_len" in kw:
+            assert res.trace.shape == (3, kw["trace_len"], 5)
+        else:
+            ref = admm_tpu_torch.logistic_lasso_path(
+                data[0], _y(data, "binomial"), device="cpu", nlambda=3)
+            np.testing.assert_allclose(res.coef.numpy(), ref.coef.numpy(),
+                                       atol=1e-4)
         return
     with pytest.raises(exc, match=match):
         admm_tpu_torch.logistic_lasso_path(data[0], _y(data, "binomial"),

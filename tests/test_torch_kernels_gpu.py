@@ -1324,3 +1324,77 @@ def test_profiler_trace_holds_the_path_kernels(dev, tmp_path):
     for kernel in ("tall_path_scan_kernel", "tall_path_batch_kernel"):
         assert any(kernel in n and e.get("cat") == "kernel"
                    for n, e in zip(names, events)), kernel
+
+
+# ---------------------------------------------------------------------------
+# Meshes on the card (admm_tpu_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_problem(n=400, p=30, seed=9):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    b = rng.uniform(size=p) * (rng.uniform(size=p) < 0.3)
+    return X, (1.0 + X @ b + 0.5 * rng.normal(size=n)).astype(np.float32)
+
+
+def test_four_position_mesh_on_the_card(dev):
+    """A one-process mesh of 4 positions on the card: the consensus path
+    (W = 8, two workers a position) and the CV (8 folds) equal their runs
+    without a mesh to the bit; ``data_mesh`` and ``fold_mesh`` launch the
+    tall kernels as often as the runs without a mesh do."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.parallel.mesh import make_mesh
+
+    X, y = _mesh_problem()
+    mesh = make_mesh(4, devices=[dev] * 4)
+    a = t.parallel_lasso_path(X, y, nworkers=8, nlambda=10)
+    b = t.parallel_lasso_path(X, y, nworkers=8, nlambda=10, mesh=mesh)
+    assert torch.equal(a.coef, b.coef) and torch.equal(a.niter, b.niter)
+    counts = []
+    for fm in (None, mesh):
+        kernels.reset_launch_counts()
+        cv = t.cv_lasso_path(X, y, nfolds=8, nlambda=10, fold_mesh=fm)
+        counts.append(kernels.launch_counts())
+        if fm is None:
+            ref = cv
+    assert np.array_equal(cv.cvm, ref.cvm)
+    assert counts[0] == counts[1] and counts[1]["tall_path_batch"] == 9
+    for mode, name in (("scan", "tall_path_scan"),
+                       ("batch", "tall_path_batch")):
+        kernels.reset_launch_counts()
+        sh = t.lasso_path(X, y, nlambda=10, path_mode=mode, data_mesh=mesh)
+        assert kernels.launch_counts()[name] == 1
+        one = t.lasso_path(X, y, nlambda=10, path_mode=mode)
+        assert (sh.coef - one.coef).abs().max().item() < 1e-5
+        assert (sh.niter - one.niter).abs().max().item() <= 1
+
+
+def test_nccl_group_of_one_rank_captures_the_gather(dev):
+    """A NCCL group of one rank in this process: the consensus chunk with
+    its all-gather is captured as a CUDA graph and equals the run without
+    a mesh to the bit, as does the tall ``data_mesh`` path."""
+    import socket
+
+    import torch.distributed as dist
+
+    import admm_tpu_torch as t
+    from admm_tpu_torch.parallel import consensus
+    from admm_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(group=dist.group.WORLD)
+        assert consensus._route(dev, True, mesh) == "graph"
+        X, y = _mesh_problem()
+        a = t.parallel_lasso_path(X, y, nworkers=4, nlambda=10)
+        b = t.parallel_lasso_path(X, y, nworkers=4, nlambda=10, mesh=mesh)
+        assert torch.equal(a.coef, b.coef) and torch.equal(a.niter, b.niter)
+        a = t.lasso_path(X, y, nlambda=10)
+        b = t.lasso_path(X, y, nlambda=10, data_mesh=mesh)
+        assert torch.equal(a.coef, b.coef) and torch.equal(a.niter, b.niter)
+    finally:
+        dist.destroy_process_group()

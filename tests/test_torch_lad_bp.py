@@ -22,6 +22,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh
 from admm_tpu.models.bp import BPResult as JBPResult
 from admm_tpu.models.lad import LADResult as JLADResult
 from admm_tpu_torch import interop
@@ -307,7 +308,9 @@ def test_builders_validate_like_reference(lad_data, bp_data, case):
     "lad_builder_trace", "lad_fit_plot",
 ])
 def test_options_not_ported_raise(lad_data, bp_data, option):
-    """``data_mesh`` raises by name; the traced solves are ported and must
+    """``data_mesh`` runs on a 4-position CPU mesh and agrees with the
+    solve without one (its parity with the JAX package's is
+    ``tests/test_torch_mesh.py``); the traced solves are ported and must
     record a trace (their parity with the JAX package is
     ``tests/test_torch_trace.py``), ``admm_bp().parallel(2)`` sets the
     consensus solver (``tests/test_torch_consensus.py``) and ``plot``
@@ -316,15 +319,16 @@ def test_options_not_ported_raise(lad_data, bp_data, option):
     A, B, _ = bp_data
     t = admm_tpu_torch
     cpu = dict(device="cpu")
+    mesh = make_mesh(4, devices=["cpu"] * 4)
     calls = {
         "lad_trace_len": lambda: t.lad_fit(X, y, trace_len=8, **cpu),
-        "lad_data_mesh": lambda: t.lad_fit(X, y, data_mesh=object(), **cpu),
+        "lad_data_mesh": lambda: t.lad_fit(X, y, data_mesh=mesh, **cpu),
         "quantile_trace_len": lambda: t.quantile_fit(X, y, tau=0.3,
                                                      trace_len=8, **cpu),
         "quantile_data_mesh": lambda: t.quantile_fit(
-            X, y, tau=0.3, data_mesh=object(), **cpu),
+            X, y, tau=0.3, data_mesh=mesh, **cpu),
         "bp_trace_len": lambda: t.bp_fit(A, B[0], trace_len=8, **cpu),
-        "bp_data_mesh": lambda: t.bp_fit(A, B[0], data_mesh=object(), **cpu),
+        "bp_data_mesh": lambda: t.bp_fit(A, B[0], data_mesh=mesh, **cpu),
         "bp_builder_trace": lambda: t.admm_bp(A, B[0], **cpu).opts(
             trace=True).fit(),
         "bp_builder_trace_int": lambda: t.admm_bp(A, B[0], **cpu).opts(
@@ -358,8 +362,14 @@ def test_options_not_ported_raise(lad_data, bp_data, option):
                                   "lad_fit_plot": "LAD fit"}[option]
         plt.close(ax.figure)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        calls[option]()
+    plain = {"lad_data_mesh": lambda: t.lad_fit(X, y, **cpu),
+             "quantile_data_mesh": lambda: t.quantile_fit(X, y, tau=0.3,
+                                                          **cpu),
+             "bp_data_mesh": lambda: t.bp_fit(A, B[0], **cpu)}[option]
+    got, ref = calls[option](), plain()
+    np.testing.assert_allclose(got.coef.numpy(), ref.coef.numpy(),
+                               atol=5e-4 if option == "bp_data_mesh"
+                               else 5e-3)
 
 
 def test_lad_parallel_raises_as_in_reference(lad_data):

@@ -15,6 +15,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -185,7 +186,10 @@ def test_options_not_ported_raise(tall, wide, option, monkeypatch):
         "dfmax": lambda: path(dfmax=3, nlambda=5),
         "pmax": lambda: path(pmax=3, nlambda=5),
         "trace_len": lambda: path(trace_len=8),
-        "data_mesh": lambda: path(data_mesh=object()),
+        # A 4-position CPU mesh (tests/test_torch_mesh.py holds its
+        # parity with the JAX package's data_mesh).
+        "data_mesh": lambda: path(data_mesh=make_mesh(4, devices=["cpu"]
+                                                      * 4)),
         "activeset": lambda: admm_tpu_torch.lasso_path(
             Xw, yw, path_mode="activeset", device="cpu"),
         # The scan-mode auto-dispatch, at a threshold this wide problem
@@ -235,7 +239,8 @@ _PORTED_OPTIONS = {"penalty_factor", "lower_limits", "upper_limits",
                    "exclude", "dfmax", "pmax", "adaptive_lasso_path",
                    "builder_penalty_factor", "builder_limits", "trace_len",
                    "activeset", "activeset_auto", "builder_trace",
-                   "builder_activeset", "builder_parallel", "fit_plot"}
+                   "builder_activeset", "builder_parallel", "fit_plot",
+                   "data_mesh"}
 
 
 def test_builder_validates_like_reference(tall):

@@ -17,6 +17,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu_torch.interop import from_reference, to_reference
 
 from _torch_parity import assert_cv_close, assert_path_close
@@ -149,9 +150,11 @@ def test_cv_multinomial_refusals(data):
         with pytest.raises(ValueError) as got:
             admm_tpu_torch.cv_multinomial_path(X, y, device="cpu", **kw)
         assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="fold_mesh"):
-        admm_tpu_torch.cv_multinomial_path(X, y, fold_mesh=object(),
-                                           device="cpu")
+    # fold_mesh: the CV on a 2-position CPU mesh is the CV without one.
+    got = admm_tpu_torch.cv_multinomial_path(
+        X, y, fold_mesh=torch_mesh(2, devices=["cpu"] * 2), device="cpu")
+    ref = admm_tpu_torch.cv_multinomial_path(X, y, device="cpu")
+    np.testing.assert_array_equal(got.cvm, ref.cvm)
 
 
 def test_predict_assess_confusion_multinomial_like_jax(data):

@@ -25,6 +25,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.core.prox import l2norm as jl2norm
 from admm_tpu.models.rpca import svt as jsvt
 from admm_tpu_torch.core.prox import l2norm
@@ -217,9 +218,11 @@ def test_cv_multitask_refusals(tall):
         admm_tpu_torch.cv_multitask_lasso_path(X, Y, cv_mode="folds",
                                                device="cpu")
     assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="fold_mesh"):
-        admm_tpu_torch.cv_multitask_lasso_path(X, Y, fold_mesh=object(),
-                                               device="cpu")
+    # fold_mesh: the CV on a 2-position CPU mesh is the CV without one.
+    got = admm_tpu_torch.cv_multitask_lasso_path(
+        X, Y, fold_mesh=torch_mesh(2, devices=["cpu"] * 2), device="cpu")
+    ref = admm_tpu_torch.cv_multitask_lasso_path(X, Y, device="cpu")
+    np.testing.assert_array_equal(got.cvm, ref.cvm)
 
 
 def test_predict_multitask_like_jax(tall):

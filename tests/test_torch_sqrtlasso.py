@@ -28,6 +28,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.models.sqrtlasso import l2_prox as jl2_prox
 from admm_tpu_torch.interop import from_reference, to_reference
 from admm_tpu_torch.models.sqrtlasso import l2_prox
@@ -161,10 +162,15 @@ def test_sqrt_lasso_refusals_like_jax(tall, case):
 
 
 def test_sqrt_lasso_data_mesh_not_ported(tall):
+    """``data_mesh`` on a 4-position CPU mesh agrees with the path without
+    one at the float32 bar (the JAX package's parity is
+    ``tests/test_torch_mesh.py``)."""
     X, y = tall
-    with pytest.raises(NotImplementedError, match="data_mesh"):
-        admm_tpu_torch.sqrt_lasso_path(X, y, data_mesh=object(),
-                                       device="cpu")
+    got = admm_tpu_torch.sqrt_lasso_path(
+        X, y, data_mesh=torch_mesh(4, devices=["cpu"] * 4), device="cpu")
+    ref = admm_tpu_torch.sqrt_lasso_path(X, y, device="cpu")
+    np.testing.assert_allclose(got.coef.numpy(), ref.coef.numpy(),
+                               atol=2e-4)
 
 
 @pytest.mark.parametrize("case", ["onepass", "loop", "weights"])

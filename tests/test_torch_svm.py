@@ -18,6 +18,7 @@ import torch
 
 import admm_tpu
 import admm_tpu_torch
+from admm_tpu_torch.parallel.mesh import make_mesh as torch_mesh
 from admm_tpu.models import svm as jsvm
 from admm_tpu_torch.interop import from_reference, to_reference
 from admm_tpu_torch.models import svm as tsvm
@@ -149,11 +150,17 @@ def test_svm_refusals_like_jax(data, case):
 
 
 def test_svm_meshes_not_ported(data):
+    """``data_mesh`` and ``fold_mesh`` on CPU meshes: the path within the
+    float32 bar of the path without one, the CV equal to the bit."""
     X, y = data
-    with pytest.raises(NotImplementedError, match="data_mesh"):
-        admm_tpu_torch.svm_path(X, y, data_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="fold_mesh"):
-        admm_tpu_torch.cv_svm_path(X, y, fold_mesh=object(), device="cpu")
+    mesh = torch_mesh(2, devices=["cpu"] * 2)
+    got = admm_tpu_torch.svm_path(X, y, data_mesh=mesh, device="cpu")
+    ref = admm_tpu_torch.svm_path(X, y, device="cpu")
+    np.testing.assert_allclose(got.coef.numpy(), ref.coef.numpy(),
+                               atol=1e-4)
+    cv = admm_tpu_torch.cv_svm_path(X, y, fold_mesh=mesh, device="cpu")
+    cv_ref = admm_tpu_torch.cv_svm_path(X, y, device="cpu")
+    np.testing.assert_array_equal(cv.cvm, cv_ref.cvm)
 
 
 @pytest.mark.parametrize("case", ["class", "loss_hinge", "weights",
