@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .diag import profile
 from .interop import to_numpy
 from .models.bp import bp_fit
 from .models.dantzig import dantzig_path
@@ -26,6 +27,7 @@ from .parallel.consensus import (parallel_bp_fit, parallel_enet_path,
                                  parallel_lasso_path)
 
 
+@profile.spanned("validate")
 def _check_xy(x, y):
     """Shape and finiteness checks; numpy inputs stay numpy, tensors stay
     tensors (on their device)."""
@@ -118,6 +120,7 @@ class ADMMLassoFit(_FitResult):
         return plot_solution_path(self.lambda_, self.beta, ax=ax)
 
 
+@profile.spanned("pack")
 def _to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -286,6 +289,7 @@ class ADMMLasso:
                     lower_limits=self.lower_limits,
                     upper_limits=self.upper_limits)
 
+    @profile.spanned("pack")
     def _fit_result(self, res) -> ADMMLassoFit:
         return ADMMLassoFit(res.lambdas.detach().cpu().numpy(),
                             _sparse_beta(res.beta0, res.coef),
@@ -303,6 +307,7 @@ class ADMMLasso:
         del kw["path_mode"]
         return dict(kw, nworkers=self.nthread)
 
+    @profile.spanned("fit")
     def fit(self) -> ADMMLassoFit:
         """(reference: R/30_admm_lasso.R:136-160, which dispatches the
         serial or the consensus solver on nthread)"""
@@ -346,6 +351,7 @@ class ADMMEnet(ADMMLasso):
         self.alpha = float(alpha)
         return self
 
+    @profile.spanned("fit")
     def fit(self) -> ADMMLassoFit:
         """``parallel()`` works here too, an extension (the reference has
         no ``admm_parenet``): the Lasso's consensus with the Enet prox."""
@@ -377,6 +383,7 @@ class ADMMDantzig(ADMMLasso):
                 "Dantzig selector; use 'batch' or 'scan'")
         return super().opts(maxit, eps_abs, eps_rel, rho, path_mode, trace)
 
+    @profile.spanned("fit")
     def fit(self) -> ADMMLassoFit:
         if any(v is not None for v in self._option_kwargs().values()):
             raise NotImplementedError(
@@ -472,6 +479,7 @@ class ADMMBP:
                     eps_rel=self.eps_rel, rho=self.rho, dtype=self.dtype,
                     trace_len=self._trace_len(), device=self.device)
 
+    @profile.spanned("fit")
     def fit(self) -> ADMMBPFit:
         """(reference: R/10_admm_bp.R:100-120, which dispatches the serial
         or the consensus solver on nthread)"""
@@ -510,6 +518,7 @@ class ADMMLAD(ADMMBP):
             "accepts nthread but silently runs serial; failing loudly "
             "is kinder)")
 
+    @profile.spanned("fit")
     def fit(self) -> ADMMLADFit:
         res = lad_fit(self.x, self.y, intercept=self.intercept,
                       **self._fit_kwargs())

@@ -30,6 +30,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..diag import profile
+
 BIG_RESID = 9999.0  # sentinel used by the reference for "not yet computed"
 
 
@@ -174,15 +176,33 @@ def _as_scalars(state: ADMMState, eps_abs, eps_rel):
             torch.as_tensor(eps_rel, dtype=dtype, device=dev))
 
 
+def _count_loop(iterations, reads, niter) -> None:
+    """A host loop's counts, added once at its end: the iterations it ran,
+    its reads of device values, and the iterations its solves report
+    (``niter``: a host int, or the lanes' tensor, which is kept only while
+    recording)."""
+    profile.count("engine.iterations", iterations)
+    profile.count("engine.host_reads", reads)
+    profile.count("solve.iterations", niter)
+
+
+def _count_single(it0: int, it: int, maxit) -> None:
+    """The counts of a single solve's loop: ``it`` read once, then
+    ``done`` before each iteration and once more unless ``maxit`` ended
+    the loop."""
+    _count_loop(it - it0, 1 + (it - it0) + (it < maxit), it)
+
+
 def _run(body, state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
     """The host loop of a single solve: one ``done`` read per iteration.
     ``it`` advances by exactly one per body call, so it is tracked on the
     host after one initial read."""
     eps_abs, eps_rel = _as_scalars(state, eps_abs, eps_rel)
-    it = int(state.it)
+    it0 = it = int(state.it)
     while it < maxit and not bool(state.done):
         state = body(state, eps_abs, eps_rel)
         it += 1
+    _count_single(it0, it, maxit)
     return state
 
 
@@ -216,12 +236,13 @@ def make_traced_solve(solve, trace_len: int):
         eps_abs, eps_rel = _as_scalars(state, eps_abs, eps_rel)
         buf = torch.full((trace_len, 5), float("nan"),
                          dtype=state.rho.dtype, device=state.rho.device)
-        it = int(state.it)
+        it0 = it = int(state.it)
         while it < maxit and not bool(state.done):
             idx = torch.clamp(state.it, max=trace_len - 1).long().reshape(1)
             state = body(state, eps_abs, eps_rel)
             buf.index_copy_(0, idx, _trace_row(state).reshape(1, 5))
             it += 1
+        _count_single(it0, it, maxit)
         return state, buf
 
     return solve_traced
@@ -339,8 +360,11 @@ def make_batched_solver(solve):
 
     def solve_batched(states: ADMMState, maxit, eps_abs, eps_rel):
         eps_abs, eps_rel = _as_scalars(states, eps_abs, eps_rel)
+        iterations = 0
         while bool(torch.any(~states.done & (states.it < maxit))):
             states = _freeze(states, body(states, eps_abs, eps_rel))
+            iterations += 1
+        _count_loop(iterations, iterations + 1, states.it)
         return states
 
     return solve_batched
@@ -380,6 +404,7 @@ def make_batched_traced_solve(solve, trace_len: int):
         buf = torch.full((k, trace_len, 5), float("nan"),
                          dtype=states.rho.dtype, device=dev)
         lanes = torch.arange(k, device=dev)
+        iterations = 0
         while bool(torch.any(~states.done & (states.it < maxit))):
             idx = torch.clamp(states.it, max=trace_len - 1).long()
             active = ~states.done
@@ -387,6 +412,8 @@ def make_batched_traced_solve(solve, trace_len: int):
             buf[lanes, idx] = torch.where(active[:, None],
                                           _trace_row(states),
                                           buf[lanes, idx])
+            iterations += 1
+        _count_loop(iterations, iterations + 1, states.it)
         return states, buf
 
     return solve_batched_traced

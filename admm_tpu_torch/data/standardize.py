@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..diag import profile
 from ..parallel.mesh import rowsum
 
 
@@ -99,6 +100,7 @@ def _x_moments(X, w, n):
     return mean, sd
 
 
+@profile.spanned("setup")
 def standardize(X: torch.Tensor, y: torch.Tensor, *, standardize_x: bool,
                 intercept: bool, weights: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, StdStats]:

@@ -5,7 +5,8 @@ a CUDA C++ kernel for Hopper (``csrc/*.cu``, built by :mod:`._build` at
 first use) and a wrapper that launches it for CUDA tensors and runs the
 plain PyTorch form for CPU tensors.  Importing this package builds nothing.
 
-The six kernels, by the name their launch count goes under:
+The six kernels, by the name their launch count goes under
+(:data:`KERNELS`):
 
 * ``tall_path_batch`` (:mod:`.tall_path`): tall Lasso/Enet path, all
   lambdas at once;
@@ -20,28 +21,25 @@ The six kernels, by the name their launch count goes under:
 """
 from __future__ import annotations
 
+from ..diag import profile
 from . import bp, glm, lad, tall_path, wide_path
 
-#: (module, counter name) of every kernel's launch count.
-_COUNTERS = {
-    "tall_path_batch": (tall_path, "batch_launches"),
-    "tall_path_scan": (tall_path, "scan_launches"),
-    "wide_path_batch": (wide_path, "batch_launches"),
-    "lad_solve": (lad, "solve_launches"),
-    "bp_batch_solve": (bp, "batch_launches"),
-    "glm_batch_path": (glm, "batch_launches"),
-}
+#: The kernels, by the name their launch count goes under: the counter
+#: ``kernel.launches.<name>`` of :mod:`admm_tpu_torch.diag.profile`.
+KERNELS = ("tall_path_batch", "tall_path_scan", "wide_path_batch",
+           "lad_solve", "bp_batch_solve", "glm_batch_path")
 
 
 def launch_counts() -> dict:
     """How many times each kernel has been launched in this process."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
+    counts = profile.counts("kernel.launches.")
+    return {name: counts.get(f"kernel.launches.{name}", 0)
+            for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for mod, attr in _COUNTERS.values():
-        setattr(mod, attr, 0)
+    profile.reset_counts("kernel.launches.")
 
 
 __all__ = ["bp", "glm", "lad", "launch_counts", "reset_launch_counts",

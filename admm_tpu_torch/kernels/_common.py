@@ -11,9 +11,12 @@ columns + (K, p) blocks) alike.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.prox import enet_prox, soft_threshold  # noqa: F401  (re-export)
+from ..diag import profile
 
 
 def fadmm_momentum(now_done, rho, r_pri, extra_sq, z_new, y_new, z_old,
@@ -147,3 +150,20 @@ def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device: the cooperative grid
     is one block on each."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def solve_span(kernel: str):
+    """Decorate a kernel's wrapper: each call is a ``solve`` span with
+    ``kernel=<kernel>`` (:mod:`admm_tpu_torch.diag.profile`), and the
+    iteration counts it returns, its last result, go to the counter
+    ``solve.iterations``.  The wrapper counts its own launches, as
+    ``kernel.launches.<kernel>``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def solve(*args, **kwargs):
+            with profile.span("solve", kernel=kernel):
+                out = fn(*args, **kwargs)
+            profile.count("solve.iterations", out[-1])
+            return out
+        return solve
+    return wrap

@@ -25,10 +25,11 @@ from __future__ import annotations
 
 import torch
 
+from ..diag import profile
 from ._build import check, load_library
 from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, check_cuda_input,
-                      fadmm_momentum, lane_groups, matmul64, pad4,
-                      padded_rows, rnorm, row_tile, sm_count, soft_threshold,
+                      fadmm_momentum, lane_groups, matmul64, pad4, padded_rows,
+                      rnorm, row_tile, sm_count, soft_threshold, solve_span,
                       sqsum)
 
 #: The dispatch bound of :func:`fits`, in floats: (232448 - 2048) / 4.
@@ -39,9 +40,6 @@ _SMEM_FLOATS = (232448 - 2048) // 4
 #: the totals, the last before the next iteration reads every block's v).
 _SUMS = 6
 SYNCS_PER_ITERATION = 4
-
-#: Launch count: the wrapper adds one where it launches the kernel.
-batch_launches = 0
 
 
 def fits(n: int, p: int) -> bool:
@@ -121,6 +119,7 @@ def bp_batch_solve_reference(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
     return z, niter.reshape(m)
 
 
+@solve_span("bp_batch_solve")
 def bp_batch_solve(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
                    restart_tol: float = 0.999):
     """m Basis-Pursuit solves against one A (``bp_batch_solve_pallas``).
@@ -128,7 +127,6 @@ def bp_batch_solve(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
     CUDA tensors launch ``bp_batch_kernel``; CPU tensors run
     :func:`bp_batch_solve_reference`.  Returns ``(z (m, p), niter (m,))``.
     """
-    global batch_launches
     if A.device.type == "cpu":
         return bp_batch_solve_reference(A, Winv, AAAB, rho, eps_abs, eps_rel,
                                         maxit, restart_tol=restart_tol)
@@ -169,7 +167,7 @@ def bp_batch_solve(A, Winv, AAAB, rho, eps_abs, eps_rel, maxit, *,
                 plan["grid"], float(rho), float(eps_abs), float(eps_rel),
                 int(maxit), float(restart_tol), stream)
             check(lib, err, "admm_bp_batch_solve")
-            batch_launches += 1
+            profile.count("kernel.launches.bp_batch_solve")
     return z, niter
 
 

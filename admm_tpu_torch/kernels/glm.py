@@ -27,11 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from ..diag import profile
 from ._build import check, load_library
 from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, binomial_grad_eta,
                       check_cuda_input, huber_grad_eta, lane_groups,
                       masked_enet_prox, matmul64, pad4, padded_rows, rnorm,
-                      row_tile, sm_count)
+                      row_tile, sm_count, solve_span)
 
 #: The dispatch bound of :func:`fits`, in floats: (232448 - 2048) / 4.
 _SMEM_FLOATS = (232448 - 2048) // 4
@@ -41,9 +42,6 @@ _SUMS = 5
 
 #: The families the kernel serves, by the integer the C entry takes.
 FAMILIES = {"binomial": 0, "huber": 1}
-
-#: Launch count: the wrapper adds one where it launches the kernel.
-batch_launches = 0
 
 
 def fits(n: int, q: int) -> bool:
@@ -138,6 +136,7 @@ def glm_batch_path_reference(Xa, Minv, ys, pen_mask, lams, rho, eps_abs,
     return z, niter.reshape(k)
 
 
+@solve_span("glm_batch_path")
 def glm_batch_path(Xa, Minv, ys, pen_mask, lams, rho, eps_abs, eps_rel,
                    alpha, maxit, *, family: str, huber_m: float = 0.0,
                    newton_steps: int = 2):
@@ -147,7 +146,6 @@ def glm_batch_path(Xa, Minv, ys, pen_mask, lams, rho, eps_abs, eps_rel,
     :func:`glm_batch_path_reference`.  ``family`` is "binomial" or
     "huber" (``huber_m`` its M).  Returns ``(z (k, q), niter (k,))``.
     """
-    global batch_launches
     if Xa.device.type == "cpu":
         return glm_batch_path_reference(Xa, Minv, ys, pen_mask, lams, rho,
                                         eps_abs, eps_rel, alpha, maxit,
@@ -194,7 +192,7 @@ def glm_batch_path(Xa, Minv, ys, pen_mask, lams, rho, eps_abs, eps_rel,
                 float(alpha), int(maxit), code, float(huber_m),
                 int(newton_steps), stream)
             check(lib, err, "admm_glm_batch_path")
-            batch_launches += 1
+            profile.count("kernel.launches.glm_batch_path")
     return z, niter
 
 

@@ -25,10 +25,11 @@ from __future__ import annotations
 
 import torch
 
+from ..diag import profile
 from ._build import check, load_library
 from ._common import (check_cuda_input, fadmm_momentum, matmul64, pad4,
                       padded_rows, rnorm, row_tile, sm_count, soft_threshold,
-                      sqsum)
+                      solve_span, sqsum)
 
 #: Largest n the kernel takes (the bound of the first kernel, 6n floats in
 #: 232448 - 2048 bytes of shared memory, kept): at n = MAX_N the state
@@ -47,9 +48,6 @@ MAX_STAGES = 64
 _CONSUMER_WARPS = 8
 _SUMS = 6
 SYNCS_PER_ITERATION = 1
-
-#: Launch count: the wrapper adds one where it launches the kernel.
-solve_launches = 0
 
 
 def fits(n: int) -> bool:
@@ -134,6 +132,7 @@ def lad_solve_reference(H, ys, rho, eps_abs, eps_rel, ynorm, maxit, *,
     return adj_y, adj_z, torch.tensor(it, dtype=torch.int32, device=dev)
 
 
+@solve_span("lad_solve")
 def lad_solve(H, ys, rho, eps_abs, eps_rel, ynorm, maxit, *,
               restart_tol: float = 0.999):
     """One LAD FADMM solve against the hat matrix (``lad_solve_pallas``).
@@ -143,7 +142,6 @@ def lad_solve(H, ys, rho, eps_abs, eps_rel, ynorm, maxit, *,
     the primal tolerance.  Returns ``(adj_y (n,), adj_z (n,), niter)``,
     ``niter`` a 0-d int32 tensor.
     """
-    global solve_launches
     if H.device.type == "cpu":
         return lad_solve_reference(H, ys, rho, eps_abs, eps_rel, ynorm,
                                    maxit, restart_tol=restart_tol)
@@ -182,7 +180,7 @@ def lad_solve(H, ys, rho, eps_abs, eps_rel, ynorm, maxit, *,
             plan["seg"], plan["stages"], float(rho), float(eps_abs),
             float(eps_rel), int(maxit), float(restart_tol), stream)
     check(lib, err, "admm_lad_solve")
-    solve_launches += 1
+    profile.count("kernel.launches.lad_solve")
     return adj_y, adj_z, niter.reshape(())
 
 

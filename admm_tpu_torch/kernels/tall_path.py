@@ -30,10 +30,12 @@ from __future__ import annotations
 
 import torch
 
+from ..diag import profile
 from ._build import check, load_library
 from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, check_cuda_input,
                       enet_prox, fadmm_momentum, lane_groups, matmul64, pad4,
-                      padded_rows, rnorm, row_tile, sm_count, sqsum)
+                      padded_rows, rnorm, row_tile, sm_count, solve_span,
+                      sqsum)
 
 #: Largest p the kernels take: the first batch kernel's bound (8p floats of
 #: lane state in one block's 232448 - 2048 bytes of shared memory), kept.
@@ -49,10 +51,6 @@ BATCH_SYNCS_PER_ITERATION = 2
 #: Rows of ``ldp`` floats of batch lane state per lane: the right-hand
 #: side, x_new, z_new, y_new, z, y, adj_z, adj_y.
 _BATCH_ROWS = 8
-
-#: Launch counts, one per kernel: each wrapper adds one where it launches.
-batch_launches = 0
-scan_launches = 0
 
 
 def fits(p: int) -> bool:
@@ -206,6 +204,7 @@ def _check_inputs(Minv, Xty, ilams):
     return p, k, dev
 
 
+@solve_span("tall_path_batch")
 def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
                     *, restart_tol: float = 0.999):
     """All lambdas of the tall path at once (``tall_path_batch_pallas``).
@@ -213,7 +212,6 @@ def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
     CUDA tensors launch ``tall_path_batch_kernel``; CPU tensors run
     :func:`tall_path_batch_reference`.  Returns ``(z (k, p), niter (k,))``.
     """
-    global batch_launches
     if Minv.device.type == "cpu":
         return tall_path_batch_reference(Minv, Xty, ilams, rho, eps_abs,
                                          eps_rel, alpha, maxit,
@@ -242,10 +240,11 @@ def tall_path_batch(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
                 plan["grid"], float(rho), float(eps_abs), float(eps_rel),
                 float(alpha), int(maxit), float(restart_tol), stream)
             check(lib, err, "admm_tall_path_batch")
-            batch_launches += 1
+            profile.count("kernel.launches.tall_path_batch")
     return z, niter
 
 
+@solve_span("tall_path_scan")
 def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
                    *, restart_tol: float = 0.999):
     """The warm-started sequential tall path (``tall_path_scan_pallas``).
@@ -253,7 +252,6 @@ def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
     CUDA tensors launch ``tall_path_scan_kernel``; CPU tensors run
     :func:`tall_path_scan_reference`.  Returns ``(z (k, p), niter (k,))``.
     """
-    global scan_launches
     if Minv.device.type == "cpu":
         return tall_path_scan_reference(Minv, Xty, ilams, rho, eps_abs,
                                         eps_rel, alpha, maxit,
@@ -283,7 +281,7 @@ def tall_path_scan(Minv, Xty, ilams, rho, eps_abs, eps_rel, alpha, maxit,
             float(rho), float(eps_abs), float(eps_rel), float(alpha),
             int(maxit), float(restart_tol), stream)
     check(lib, err, "admm_tall_path_scan")
-    scan_launches += 1
+    profile.count("kernel.launches.tall_path_scan")
     return z, niter
 
 

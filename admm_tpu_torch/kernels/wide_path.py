@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import torch
 
+from ..diag import profile
 from ._build import check, load_library
 from ._common import (GRID_THREADS, PRODUCT_SMEM_BYTES, check_cuda_input,
                       enet_prox, lane_groups, matmul64, pad4, padded_rows,
-                      rnorm, row_tile, sm_count)
+                      rnorm, row_tile, sm_count, solve_span)
 
 #: The dispatch bound of :func:`fits`, in floats: (232448 - 2048) / 4.
 _SMEM_FLOATS = (232448 - 2048) // 4
@@ -37,9 +38,6 @@ _SMEM_FLOATS = (232448 - 2048) // 4
 #: gradient's left factor with the rho the ladder has just set).
 _SUMS = 5
 SYNCS_PER_ITERATION = 3
-
-#: Launch count: the wrapper adds one where it launches the kernel.
-batch_launches = 0
 
 
 def fits(n: int, p: int) -> bool:
@@ -136,6 +134,7 @@ def wide_path_batch_reference(X, ys, ilams, rhos, sprad, lambda0, eps_abs,
     return x, niter.reshape(k)
 
 
+@solve_span("wide_path_batch")
 def wide_path_batch(X, ys, ilams, rhos, sprad, lambda0, eps_abs, eps_rel,
                     alpha, maxit, *, rho_start_iter: int = 3):
     """The batched wide path (``wide_path_batch_pallas``).
@@ -144,7 +143,6 @@ def wide_path_batch(X, ys, ilams, rhos, sprad, lambda0, eps_abs, eps_rel,
     :func:`wide_path_batch_reference`.  ``rhos`` is per lane (k,).
     Returns ``(x (k, p), niter (k,))``.
     """
-    global batch_launches
     if X.device.type == "cpu":
         return wide_path_batch_reference(X, ys, ilams, rhos, sprad, lambda0,
                                          eps_abs, eps_rel, alpha, maxit,
@@ -186,7 +184,7 @@ def wide_path_batch(X, ys, ilams, rhos, sprad, lambda0, eps_abs, eps_rel,
                 float(eps_rel), float(alpha), int(maxit),
                 int(rho_start_iter), stream)
             check(lib, err, "admm_wide_path_batch")
-            batch_launches += 1
+            profile.count("kernel.launches.wide_path_batch")
     return x, niter
 
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..diag import profile
 from ..interop import to_numpy
 from ..parallel.mesh import all_sum
 from .lasso import PathResult, _as_tensor, lasso_path, validate_pf_limits
@@ -195,16 +196,17 @@ def _fold_sweep(X, masks, fid, mesh, solve_fold, eta_of=None):
     order = torch.as_tensor(order, device=X.device)
     eta = None
     for f in folds:
-        res = solve_fold(masks[f])
-        rows = order[int(edges[f]):int(edges[f + 1])]
-        part = (res.beta0[None, :] + X[rows] @ res.coef.mT if eta_of is None
-                else eta_of(res, X[rows]))
-        if eta is None:
-            eta = (torch.empty if mesh is None else torch.zeros)(
-                (n,) + tuple(part.shape[1:]), dtype=part.dtype,
-                device=X.device)
-        eta[rows] = part
-        del res
+        with profile.span("cv_fold", fold=f):
+            res = solve_fold(masks[f])
+            rows = order[int(edges[f]):int(edges[f + 1])]
+            part = (res.beta0[None, :] + X[rows] @ res.coef.mT
+                    if eta_of is None else eta_of(res, X[rows]))
+            if eta is None:
+                eta = (torch.empty if mesh is None else torch.zeros)(
+                    (n,) + tuple(part.shape[1:]), dtype=part.dtype,
+                    device=X.device)
+            eta[rows] = part
+            del res
     return eta if mesh is None else all_sum([eta], mesh)
 
 
@@ -327,6 +329,7 @@ def _cv_curve(per_obs, foldid, w=None):
     return cvm, cvsd
 
 
+@profile.spanned("fit")
 def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
                   lambda_min_ratio: Optional[float] = None,
                   lambdas=None, alpha: float = 1.0,
@@ -420,7 +423,8 @@ def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
         raise ValueError("cv_mode='onepass' needs a one-pass fold "
                          "solver; this CV driver has none — use "
                          "cv_mode='loop'")
-    lams = to_numpy(full.lambdas).astype(np.float64)
+    with profile.span("pack"):
+        lams = to_numpy(full.lambdas).astype(np.float64)
     scored = foldid >= 0
     n_sc = int(scored.sum())
     cvm = cvsd = eta_all = None
@@ -450,14 +454,16 @@ def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
             ws = scored.astype(np.float64)
             if w is not None:
                 ws = ws * w
-            curves = to_numpy(dev_reduce(
+            reduced = dev_reduce(
                 eta_dev, y_t, torch.as_tensor(ws, dtype=dtype,
                                               device=X.device),
-                torch.tensor(float(n_sc), dtype=dtype,
-                             device=X.device))).astype(np.float64)
+                torch.tensor(float(n_sc), dtype=dtype, device=X.device))
+            with profile.span("pack"):
+                curves = to_numpy(reduced).astype(np.float64)
             cvm, cvsd = curves[0], curves[1]
         else:
-            eta_all = to_numpy(eta_dev)
+            with profile.span("pack"):
+                eta_all = to_numpy(eta_dev)
     else:
         X_np = to_numpy(X).astype(np.float64)
         eta_all = np.full((n, lams.shape[0]), np.nan)
@@ -467,9 +473,10 @@ def cv_lasso_path(X, y, *, nfolds: int = 10, nlambda: int = 100,
             va = foldid == f
             res = _path_fn(X[tr], y_t[tr], lams,
                            None if w is None else w[foldid != f])
-            eta_all[va] = (to_numpy(res.beta0).astype(np.float64)[:, None]
-                           + to_numpy(res.coef).astype(np.float64)
-                           @ X_np[va].T).T
+            with profile.span("pack"):
+                eta_all[va] = (
+                    to_numpy(res.beta0).astype(np.float64)[:, None]
+                    + to_numpy(res.coef).astype(np.float64) @ X_np[va].T).T
 
     if cvm is not None:
         pass  # scored on the device above
@@ -877,7 +884,8 @@ def cv_multitask_lasso_path(X, Y, *, nfolds: int = 10, seed: int = 0,
                                 weights=w, dtype=dtype, device=X.device,
                                 **path_kw)
     path_kw.pop("lambdas", None)   # the fold fits take the shared grid
-    lams = to_numpy(full.lambdas).astype(np.float64)
+    with profile.span("pack"):
+        lams = to_numpy(full.lambdas).astype(np.float64)
     Yf = Y_np if off is None else Y_np - off        # the fits see Y - off
     if onepass:
         pf, _ = validate_pf_limits(path_kw.get("penalty_factor"), None, None,
@@ -962,7 +970,8 @@ def cv_multinomial_path(X, y, *, nfolds: int = 10, seed: int = 0,
                                   weights=w, dtype=dtype, device=X.device,
                                   **path_kw)
     path_kw.pop("lambdas", None)   # the fold fits take the shared grid
-    lams = to_numpy(full.lambdas).astype(np.float64)
+    with profile.span("pack"):
+        lams = to_numpy(full.lambdas).astype(np.float64)
     if onepass:
         pf, _ = validate_pf_limits(path_kw.get("penalty_factor"), None, None,
                                    None, p, dtype, X.device)

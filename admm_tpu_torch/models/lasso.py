@@ -40,6 +40,7 @@ from ..core.engine import (ADMMState, ProblemOps, _adaptive_rho, col,
                            warm_start)
 from ..core.prox import enet_prox, l2norm, sqnorm
 from ..data.standardize import StdStats, recover, standardize
+from ..diag import profile
 from ..kernels import tall_path, wide_path
 from ..linalg import dot, gram, ridge_inverse, spectral_radius_gram, spectral_radius_sym
 from ..parallel.mesh import is_sharded, put_dim_sharded
@@ -56,6 +57,7 @@ class PathResult(NamedTuple):
     trace: Optional[torch.Tensor] = None
 
 
+@profile.spanned("pack")
 def _truncate_path(res, dfmax, pmax):
     """glmnet's ``dfmax``/``pmax``: the longest path PREFIX on which every
     point has <= dfmax nonzero coefficients (and the ever-active union
@@ -83,6 +85,7 @@ def _truncate_path(res, dfmax, pmax):
     return res._replace(**upd)
 
 
+@profile.spanned("validate")
 def validate_pf_limits(penalty_factor, exclude, lower_limits, upper_limits,
                        p, dtype, device):
     """Normalize glmnet's ``penalty.factor`` / ``exclude`` /
@@ -193,6 +196,7 @@ def _tall_ops(Minv, Xty, alpha, p, pf=None, bounds=None) -> ProblemOps:
     )
 
 
+@profile.spanned("setup")
 def _tall_setup(Xs, ys, lam_first, rho0):
     """Ridge inverse, X'y and rho.  Auto-rho is the power law
     ``cbrt(sprad) * lambda^(2/3)`` (reference: src/ADMMLassoTall.h:194-202);
@@ -234,16 +238,17 @@ def _scan_path(st0, solve, report, ilams, maxit, eps_abs, eps_rel,
     st = st0
     coefs, niter, traces = [], [], []
     for lam in ilams:
-        st = warm_start(st, lam)
-        if refresh is not None:
-            st = st._replace(aux=refresh(st.x))
-        if solve_t is None:
-            st = solve(st, maxit, eps_abs, eps_rel)
-        else:
-            st, buf = solve_t(st, maxit, eps_abs, eps_rel)
-            traces.append(buf)
-        coefs.append(report(st))
-        niter.append(st.it)
+        with profile.span("solve", kernel="engine"):
+            st = warm_start(st, lam)
+            if refresh is not None:
+                st = st._replace(aux=refresh(st.x))
+            if solve_t is None:
+                st = solve(st, maxit, eps_abs, eps_rel)
+            else:
+                st, buf = solve_t(st, maxit, eps_abs, eps_rel)
+                traces.append(buf)
+            coefs.append(report(st))
+            niter.append(st.it)
     return (st, torch.stack(coefs), torch.stack(niter),
             torch.stack(traces) if traces else None)
 
@@ -283,6 +288,7 @@ def _batched_cold_states(k, dims, rho, ilams, aux_dim=None) -> ADMMState:
     )
 
 
+@profile.spanned("solve", kernel="engine")
 def _run_batched(engine, st, maxit, eps_abs, eps_rel, trace_len):
     """The batched engine on cold lanes, traced per lane when
     ``trace_len`` is set: ``(final states, (k, trace_len, 5) or None)``."""
@@ -316,6 +322,7 @@ def _solve_path_tall_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
 # Wide regime (p >= n): linearized ADMM, adaptive rho
 # ---------------------------------------------------------------------------
 
+@profile.spanned("setup")
 def _wide_setup(Xs, ys, rho_lams, rho0, alpha, enet_lambda0_scale):
     """lambda0 (with the Enet inflation, reference: src/ADMMEnet.h:56),
     the matrix-free spectral radius of XX', and auto-rho
@@ -509,6 +516,10 @@ def _solve_path_wide_activeset(Xs, ys, ilams, rho0, maxit, eps_abs,
             done = bool(done_t)
         coefs.append(x)
         niter.append(it)
+    # One read of ``done`` an iteration, counted once for the path.
+    for name in ("engine.iterations", "engine.host_reads",
+                 "solve.iterations"):
+        profile.count(name, sum(niter))
     return (torch.stack(coefs),
             torch.tensor(niter, dtype=torch.int32, device=dev), None)
 
@@ -543,6 +554,7 @@ def _kkt_top(Xty, pf, alpha, enet_scale, Xty_abs=None):
     return top / (alpha + 1e-4) if enet_scale else top
 
 
+@profile.spanned("setup")
 def _auto_lambdas(Xs, ys, stats: StdStats, nlambda, lambda_min_ratio,
                   alpha, enet_scale, pf=None, limits=None):
     """Auto lambda grid: log-linear from lambda0 down to ratio*lambda0
@@ -637,6 +649,7 @@ def _path_from_lams(Xs, ys, stats: StdStats, lams, rho, maxit, eps_abs,
                       trace=traces)
 
 
+@profile.spanned("h2d")
 def _as_tensor(a, dtype, device) -> torch.Tensor:
     """A tensor stays on its own device; anything else goes to ``device``."""
     if isinstance(a, torch.Tensor):
@@ -644,6 +657,7 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+@profile.spanned("h2d")
 def _as_data(X, dtype, device, data_mesh=None, dim: int = 0):
     """The data matrix of an entry point: ``_as_tensor``'s, or under
     ``data_mesh`` this process's blocks along ``dim``
@@ -655,6 +669,7 @@ def _as_data(X, dtype, device, data_mesh=None, dim: int = 0):
     return put_dim_sharded(X, data_mesh, dim, dtype)
 
 
+@profile.spanned("fit")
 def lasso_path(X, y, *, lambdas=None, nlambda: int = 100,
                lambda_min_ratio: Optional[float] = None,
                standardize: bool = True, intercept: bool = True,
