@@ -10,7 +10,12 @@ bundle of pure functions per model, and engine factories returning
 
 * ``lax.while_loop`` becomes a Python loop that reads ``done`` on the host
   once per iteration, so ``it`` is exact (the CUDA path kernels in
-  :mod:`admm_tpu_torch.kernels` are what remove that sync);
+  :mod:`admm_tpu_torch.kernels` are what remove that sync); on a CUDA
+  device, for hooks that declare themselves capturable
+  (``ProblemOps.graph_safe``), a single solve instead runs chunks of
+  ``_CHUNK`` guarded iterations, each one replay of a CUDA graph, with one
+  host read a chunk (:func:`_chunked`); ``niter``, the iterates and rho are
+  the op-by-op loop's, to the bit;
 * ``vmap`` becomes an explicit leading lane axis: iterates are
   ``(..., dim)`` and per-lane scalars ``(...)``, and every reduction runs
   over the last axis, so one body serves a single lambda and a batch of
@@ -25,6 +30,7 @@ src/ADMMBase.h:49-83)::
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -33,6 +39,13 @@ import torch
 from ..diag import profile
 
 BIG_RESID = 9999.0  # sentinel used by the reference for "not yet computed"
+
+# Iterations queued on the device between two host reads of the stop flag
+# on the graph route (one read per chunk; a finished solve runs up to
+# ``_CHUNK - 1`` frozen iterations).  Measured on the H100 on the wide
+# scan path, 1000 x 2000 x 100 lambdas: 4 beats 8 and 16 (PERF.md
+# section 6).
+_CHUNK = 4
 
 
 class ADMMState(NamedTuple):
@@ -87,6 +100,9 @@ class ProblemOps(NamedTuple):
     combined_extra: Optional[Callable[[ADMMState, Any], torch.Tensor]]
     dim_main: int
     dim_dual: int
+    # Every hook is capturable in a CUDA graph: it reads nothing on the
+    # host and runs no collective (:func:`_route`).
+    graph_safe: bool = False
 
 
 def col(s: torch.Tensor) -> torch.Tensor:
@@ -161,10 +177,26 @@ def _adaptive_rho(rho, r_pri, eps_pri, r_dua, eps_dua):
     return rho
 
 
-def _tolerances(ops: ProblemOps, state: ADMMState, eps_abs, eps_rel):
-    dtype, dev = state.rho.dtype, state.rho.device
-    sq_dual = torch.tensor(math.sqrt(ops.dim_dual), dtype=dtype, device=dev)
-    sq_main = torch.tensor(math.sqrt(ops.dim_main), dtype=dtype, device=dev)
+def _sqrt_dims(ops: ProblemOps):
+    """``state -> (sqrt(dim_dual), sqrt(dim_main))`` as tensors in the
+    state's dtype and on its device, built once per solver for each: a
+    ``torch.tensor`` from the host is a synchronous copy, and a captured
+    iteration may make none."""
+    made = {}
+
+    def sqrt_dims(state: ADMMState):
+        key = (state.rho.dtype, state.rho.device)
+        if key not in made:
+            made[key] = tuple(
+                torch.tensor(math.sqrt(d), dtype=key[0], device=key[1])
+                for d in (ops.dim_dual, ops.dim_main))
+        return made[key]
+    return sqrt_dims
+
+
+def _tolerances(ops: ProblemOps, sqrt_dims, state: ADMMState, eps_abs,
+                eps_rel):
+    sq_dual, sq_main = sqrt_dims(state)
     eps_pri = ops.eps_primal_scale(state) * eps_rel + sq_dual * eps_abs
     eps_dua = ops.eps_dual_scale(state) * eps_rel + sq_main * eps_abs
     return eps_pri, eps_dua
@@ -176,14 +208,16 @@ def _as_scalars(state: ADMMState, eps_abs, eps_rel):
             torch.as_tensor(eps_rel, dtype=dtype, device=dev))
 
 
-def _count_loop(iterations, reads, niter) -> None:
-    """A host loop's counts, added once at its end: the iterations it ran,
-    its reads of device values, and the iterations its solves report
-    (``niter``: a host int, or the lanes' tensor, which is kept only while
-    recording)."""
+def _count_loop(iterations, reads, niter, graphed: int = 0) -> None:
+    """A host loop's counts, added once at its end: the iterations the
+    device ran (frozen ones included), its reads of device values, the
+    iterations its solves report (``niter``: a host int, or a tensor,
+    which is kept only while recording), and of the device's iterations
+    those a replayed CUDA graph ran."""
     profile.count("engine.iterations", iterations)
     profile.count("engine.host_reads", reads)
     profile.count("solve.iterations", niter)
+    profile.count("engine.graphed_iterations", graphed)
 
 
 def _count_single(it0: int, it: int, maxit) -> None:
@@ -204,6 +238,146 @@ def _run(body, state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
         it += 1
     _count_single(it0, it, maxit)
     return state
+
+
+def _route(state: ADMMState, ops: ProblemOps) -> str:
+    """How a single solve's loop runs: "graph" (:func:`_chunked`) when the
+    state is on a CUDA device and the hooks are capturable
+    (``ops.graph_safe``: nothing in them reads the host or runs a
+    collective); "eager" (:func:`_run`, one read of ``done`` an
+    iteration) otherwise."""
+    if ops.graph_safe and state.rho.device.type == "cuda":
+        return "graph"
+    return "eager"
+
+
+def _clone(a):
+    """A copy of a tensor, or of a tuple of them (None stays None)."""
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        return type(a)(*map(_clone, a))
+    return a.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: int) -> torch.cuda.Stream:
+    """The one side stream of a device on which every chunk is warmed up
+    and captured.  cuBLAS keeps a workspace (32 MiB on the H100) for each
+    stream it has run on, so a new stream a capture would hold one more
+    each, up to PyTorch's pool of 32 streams (1.1 GB on the wide path)."""
+    return torch.cuda.Stream(device)
+
+
+def _graphed(advance, chunk, *args):
+    """``advance`` (one chunk, written back into its state and flag in
+    place) as a CUDA graph: captured once, replayed per chunk, so a chunk
+    costs one launch of the host's instead of some sixty to eighty per
+    iteration.  The same kernels run in the same order on the same
+    tensors, so the bits are the eager loop's.  A warm-up of ``chunk`` on
+    copies of ``args``, on the side stream the capture then uses, sets up
+    the libraries' handles first.  The graph holds no reference to the
+    tensors it reads and writes: the caller keeps them alive as long as
+    it replays."""
+    side = _side_stream(torch.cuda.current_device())
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chunk(*map(_clone, args))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        advance()
+    return graph.replay
+
+
+def _keep(active, old: ADMMState, new: ADMMState) -> ADMMState:
+    """One guarded step: a state that was not active keeps its values (a
+    field the step left as it was stays that tensor)."""
+    return ADMMState(*(a if a is b else torch.where(active, b, a)
+                       for a, b in zip(old, new)))
+
+
+def _chunked(body):
+    """The graph route of a single solve: ``run(state, maxit, eps_abs,
+    eps_rel)``.
+
+    The path's state lives in static tensors; each call copies its
+    incoming state into them (a warm start, a refreshed ``aux``, a resumed
+    checkpoint) and runs chunks of ``_CHUNK`` guarded iterations, written
+    back in place: ``active = ~done & (it < maxit)`` keeps a finished
+    state by ``torch.where``, so ``niter``, the iterates and rho are those
+    of the loop that stops at once.  The host reads one flag a chunk.  On
+    a CUDA device the chunk is captured as a CUDA graph (:func:`_graphed`)
+    at the first call and replayed after, and captured again when the
+    state's shapes, dtypes or None pattern, ``maxit`` or the tolerances
+    change; elsewhere it runs op by op.  Returns copies, never the static
+    tensors."""
+    slot = {}
+
+    def build(state: ADMMState, maxit, eps_abs, eps_rel):
+        st = _clone(state)
+        eps = _as_scalars(state, eps_abs, eps_rel)
+        more = torch.zeros((), dtype=torch.bool, device=state.rho.device)
+
+        def chunk(st, eps_abs, eps_rel):
+            """``_CHUNK`` guarded iterations, then the flag "still
+            running"."""
+            for _ in range(_CHUNK):
+                active = ~st.done & (st.it < maxit)
+                st = _keep(active, st, body(st, eps_abs, eps_rel))
+            return st, ~st.done & (st.it < maxit)
+
+        def advance():
+            new, flag = chunk(st, *eps)
+            for s, t in zip(st, new):
+                if s is not t:
+                    s.copy_(t)
+            more.copy_(flag)
+
+        graphed = st.rho.device.type == "cuda"
+        if graphed:
+            advance = _graphed(advance, chunk, st, *eps)
+        # The graph reads and writes st, eps and more in place: they live
+        # as long as it does.
+        slot.update(st=st, eps=eps, more=more, advance=advance,
+                    graphed=graphed)
+
+    def run(state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
+        key = (tuple(None if t is None else (t.shape, t.dtype, t.device)
+                     for t in state), maxit, float(eps_abs), float(eps_rel))
+        if slot.get("key") != key:
+            build(state, maxit, eps_abs, eps_rel)
+            slot["key"] = key
+        st, more, advance = slot["st"], slot["more"], slot["advance"]
+        for s, t in zip(st, state):
+            if s is not None:
+                s.copy_(t)
+        chunks = 1
+        advance()
+        while bool(more):       # the one host read of each chunk
+            advance()
+            chunks += 1
+        out = _clone(st)
+        _count_loop(chunks * _CHUNK, chunks, out.it,
+                    chunks * _CHUNK if slot["graphed"] else 0)
+        return out
+
+    return run
+
+
+def _solver(body, ops: ProblemOps):
+    """An engine's ``solve``: the graph route where :func:`_route` allows
+    it, the op-by-op loop otherwise."""
+    chunked = _chunked(body)
+
+    def solve(state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
+        if _route(state, ops) == "graph":
+            with torch.cuda.device(state.rho.device):
+                return chunked(state, maxit, eps_abs, eps_rel)
+        return _run(body, state, maxit, eps_abs, eps_rel)
+
+    solve.body = body
+    return solve
 
 
 def _trace_row(state: ADMMState) -> torch.Tensor:
@@ -256,9 +430,11 @@ def make_admm_solver(ops: ProblemOps, *, adapt_rho: bool = True,
     convergence test -> adaptive rho (after ``rho_start_iter``).  The
     returned ``state.it`` is the reference's ``niter``.
     """
+    sqrt_dims = _sqrt_dims(ops)
 
     def body(state: ADMMState, eps_abs, eps_rel) -> ADMMState:
-        eps_pri, eps_dua = _tolerances(ops, state, eps_abs, eps_rel)
+        eps_pri, eps_dua = _tolerances(ops, sqrt_dims, state, eps_abs,
+                                       eps_rel)
         x_new = ops.next_x(state)
         z_new, aux_new = ops.next_z(state, x_new)
         r_dua = ops.dual_residual(state, z_new)
@@ -277,11 +453,7 @@ def make_admm_solver(ops: ProblemOps, *, adapt_rho: bool = True,
             it=state.it + 1, done=done,
         )
 
-    def solve(state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
-        return _run(body, state, maxit, eps_abs, eps_rel)
-
-    solve.body = body
-    return solve
+    return _solver(body, ops)
 
 
 def make_fadmm_solver(ops: ProblemOps, *, adapt_rho: bool = False,
@@ -296,10 +468,12 @@ def make_fadmm_solver(ops: ProblemOps, *, adapt_rho: bool = False,
     """
     if ops.combined_extra is None:
         raise ValueError("FADMM needs combined_extra")
+    sqrt_dims = _sqrt_dims(ops)
 
     def body(state: ADMMState, eps_abs, eps_rel) -> ADMMState:
         old_z, old_y = state.z, state.y
-        eps_pri, eps_dua = _tolerances(ops, state, eps_abs, eps_rel)
+        eps_pri, eps_dua = _tolerances(ops, sqrt_dims, state, eps_abs,
+                                       eps_rel)
         x_new = ops.next_x(state)
         z_new, aux_new = ops.next_z(state, x_new)
         r_dua = ops.dual_residual(state, z_new)
@@ -341,11 +515,7 @@ def make_fadmm_solver(ops: ProblemOps, *, adapt_rho: bool = False,
             it=state.it + 1, done=done,
         )
 
-    def solve(state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
-        return _run(body, state, maxit, eps_abs, eps_rel)
-
-    solve.body = body
-    return solve
+    return _solver(body, ops)
 
 
 def make_batched_solver(solve):

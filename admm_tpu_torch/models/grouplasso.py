@@ -144,7 +144,8 @@ def _gl_tall_engine(Xs, ys, lam_first, rho0, gp):
         v = x_new + st.adj_y / col(st.rho)
         return prox(v, col(st.lam / st.rho)), st.aux
 
-    ops = _tall_ops(Minv, Xty, 1.0, p)._replace(next_z=next_z)
+    ops = _tall_ops(Minv, Xty, 1.0, p)._replace(next_z=next_z,
+                                                graph_safe=False)
     solve = make_fadmm_solver(ops, adapt_rho=False)
     zeros = torch.zeros((p,), dtype=Xs.dtype, device=Xs.device)
     st0 = make_state(zeros, zeros, zeros, rho, lam_first)
@@ -171,7 +172,7 @@ def _gl_wide_engine(Xs, ys, lam_first, rho0, gp):
                            torch.zeros_like(x_new), x_new)
 
     ops = _wide_ops(Xs, ys, sprad, lambda0, 1.0, n, p)._replace(
-        next_x=next_x)
+        next_x=next_x, graph_safe=False)
     solve = make_admm_solver(ops, adapt_rho=True)
     zn = torch.zeros((n,), dtype=dtype, device=dev)
     st0 = make_state(torch.zeros((p,), dtype=dtype, device=dev), zn, zn, rho,

@@ -175,6 +175,9 @@ def _penalized_prox(v, pen, alpha, pf, bounds):
 
 
 def _tall_ops(Minv, Xty, alpha, p, pf=None, bounds=None) -> ProblemOps:
+    """The tall Lasso's hooks.  They read only the replicated ``Minv``
+    and ``X'y`` (a row-sharded X's sums are taken at set-up), so they are
+    capturable in a CUDA graph (``graph_safe``)."""
     def next_x(st):
         rhs = Xty - st.adj_y + col(st.rho) * st.adj_z
         return rhs @ Minv.mT          # Minv @ rhs, lane by lane
@@ -192,7 +195,7 @@ def _tall_ops(Minv, Xty, alpha, p, pf=None, bounds=None) -> ProblemOps:
         eps_dual_scale=lambda st: l2norm(st.y),
         dual_residual=lambda st, z_new: st.rho * l2norm(z_new - st.z),
         combined_extra=lambda st, z_new: sqnorm(z_new - st.adj_z),
-        dim_main=p, dim_dual=p,
+        dim_main=p, dim_dual=p, graph_safe=True,
     )
 
 
@@ -341,6 +344,10 @@ def _wide_setup(Xs, ys, rho_lams, rho0, alpha, enet_lambda0_scale):
 
 def _wide_ops(Xs, ys, sprad, lambda0, alpha, n, p, pf=None,
               bounds=None) -> ProblemOps:
+    """The wide Lasso's hooks: capturable in a CUDA graph
+    (``graph_safe``) unless X is a row-sharded matrix (``Sharded``), whose
+    products sum over positions (``all_sum``; gloo's runs through the
+    host)."""
     sqrt_sprad = torch.sqrt(sprad)
 
     def next_x(st):
@@ -369,7 +376,7 @@ def _wide_ops(Xs, ys, sprad, lambda0, alpha, n, p, pf=None,
         dual_residual=lambda st, z_new: st.rho * sqrt_sprad
         * l2norm(z_new - st.z),
         combined_extra=None,
-        dim_main=p, dim_dual=n,
+        dim_main=p, dim_dual=n, graph_safe=not is_sharded(Xs),
     )
 
 

@@ -128,7 +128,8 @@ def _slope_tall_ops(Minv, Xty, lam_seq, p):
         v = x_new + st.adj_y / col(st.rho)
         return prox_sorted_l1(v, col(st.lam / st.rho) * lam_seq), None
 
-    return _tall_ops(Minv, Xty, 1.0, p)._replace(next_z=next_z)
+    return _tall_ops(Minv, Xty, 1.0, p)._replace(next_z=next_z,
+                                                  graph_safe=False)
 
 
 def _slope_wide_ops(Xs, ys, sprad, t0, lam_seq, n, p):
@@ -139,7 +140,8 @@ def _slope_wide_ops(Xs, ys, sprad, t0, lam_seq, n, p):
         return torch.where(col(st.lam > t0 * (1.0 - 1e-5)),
                            torch.zeros_like(x_new), x_new)
 
-    return _wide_ops(Xs, ys, sprad, t0, 1.0, n, p)._replace(next_x=next_x)
+    return _wide_ops(Xs, ys, sprad, t0, 1.0, n, p)._replace(
+        next_x=next_x, graph_safe=False)
 
 
 def _slope_t0(Xs, ys, lam_seq):

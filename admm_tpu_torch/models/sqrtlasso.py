@@ -174,8 +174,9 @@ def _sqrt_inner_engine(Xs, ys, ilam0, rho0):
     dtype, dev = Xs.dtype, Xs.device
     if n > p:
         Minv, Xty, rho = _tall_setup(Xs, ys, ilam0, rho0)
-        solve = make_fadmm_solver(_tall_ops(Minv, Xty, 1.0, p),
-                                  adapt_rho=False)
+        solve = make_fadmm_solver(
+            _tall_ops(Minv, Xty, 1.0, p)._replace(graph_safe=False),
+            adapt_rho=False)
 
         def st0_maker(k, ilams):
             if k is None:
@@ -185,8 +186,9 @@ def _sqrt_inner_engine(Xs, ys, ilam0, rho0):
 
         return solve, st0_maker, (lambda st: st.z), rho
     lambda0, sprad, rho = _wide_setup(Xs, ys, ilam0, rho0, 1.0, False)
-    solve = make_admm_solver(_wide_ops(Xs, ys, sprad, lambda0, 1.0, n, p),
-                             adapt_rho=True)
+    solve = make_admm_solver(
+        _wide_ops(Xs, ys, sprad, lambda0, 1.0, n, p)._replace(
+            graph_safe=False), adapt_rho=True)
 
     def st0_maker(k, ilams):
         if k is None:

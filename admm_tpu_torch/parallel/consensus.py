@@ -56,6 +56,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.engine import _graphed
 from ..core.prox import soft_threshold
 from ..data.standardize import recover
 from ..data.standardize import standardize as standardize_data
@@ -406,25 +407,6 @@ def _route(dev, graph_safe: bool, mesh=None) -> str:
     return "eager"
 
 
-def _graphed(advance, chunk, st: _ConsensusState, buf):
-    """``advance`` (one chunk, written back into ``st``, ``buf`` and the
-    flag in place) as a CUDA graph: captured once, replayed per chunk, so
-    a chunk costs one launch of the host's instead of some sixty per
-    iteration.  The same kernels run in the same order on the same
-    tensors, so the bits are the eager loop's.  A warm-up on copies, on a
-    side stream, sets up the libraries' handles first."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        chunk(_ConsensusState(*(t.clone() for t in st)),
-              None if buf is None else buf.clone())
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        advance()
-    return graph.replay
-
-
 def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
                      eps_rel, *, nworkers: int, make_x_update: Callable,
                      master_prox: Callable, auto_rho: Callable,
@@ -450,10 +432,11 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
     test used.
 
     On a CUDA device each chunk is one CUDA graph, captured once per path
-    and replayed (:func:`_graphed`), unless ``graph_safe`` is False: a
-    hook that reads the host inside an iteration (the SVD's and the
-    Cholesky's error checks, the parallel PAVA's loop) cannot be captured,
-    nor can a gloo collective (:func:`_route`).
+    and replayed (:func:`~admm_tpu_torch.core.engine._graphed`), unless
+    ``graph_safe`` is False: a hook that reads the host inside an
+    iteration (the SVD's and the Cholesky's error checks, the parallel
+    PAVA's loop) cannot be captured, nor can a gloo collective
+    (:func:`_route`).
 
     Returns ``(coefs, niter, (x, y, z, rho), traces)``.
     """

@@ -1247,6 +1247,47 @@ def test_consensus_graph_equals_the_eager_loop_on_the_card(dev, driver,
                            torch.nan_to_num(eager.trace, nan=-1.0))
 
 
+@pytest.mark.parametrize("regime", ["wide_scan", "tall_factors"])
+def test_engine_graph_equals_the_eager_loop_on_the_card(dev, regime,
+                                                        monkeypatch):
+    """A single solve's chunks as a CUDA graph run the op-by-op loop's
+    kernels in its order: ``lasso_path`` on the wide scan path (200 x
+    400) and the tall path with penalty factors gives the same beta,
+    niter and lambda to the bit as with the route forced to the eager
+    loop.  Every device iteration of the graphed run is a graphed one,
+    none of the eager run's; the second shape's call captures anew."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.core import engine
+    from admm_tpu_torch.diag import profile
+
+    shapes = ([(200, 400), (150, 320)] if regime == "wide_scan"
+              else [(300, 40), (260, 30)])
+
+    def call(n, p):
+        rng = np.random.default_rng(n + p)
+        X = rng.normal(size=(n, p))
+        y = X[:, :8] @ rng.uniform(-1, 1, 8) + 0.5 * rng.normal(size=n)
+        kw = dict(nlambda=20, device=dev, dtype=torch.float32)
+        if regime == "tall_factors":
+            kw["penalty_factor"] = np.linspace(0.2, 2.0, p)
+        with profile.record() as rec:
+            res = t.lasso_path(X, y, **kw)
+        assert res.coef.device.type == "cuda"
+        return res, rec
+
+    graphed = [call(*s) for s in shapes]
+    monkeypatch.setattr(engine, "_route", lambda *a: "eager")
+    eager = [call(*s) for s in shapes]
+    for (g, g_rec), (e, e_rec) in zip(graphed, eager):
+        for f in ("coef", "beta0", "niter", "lambdas"):
+            assert torch.equal(getattr(g, f), getattr(e, f)), f
+        iters = g_rec.total("engine.iterations")
+        assert iters >= int(g.niter.sum()) > 0
+        assert g_rec.total("engine.graphed_iterations") == iters
+        assert e_rec.total("engine.iterations") == int(e.niter.sum())
+        assert e_rec.total("engine.graphed_iterations") == 0
+
+
 # ---------------------------------------------------------------------------
 # Checkpointed drivers and the profiler on the card
 # ---------------------------------------------------------------------------
