@@ -20,11 +20,12 @@ From the Chrome trace, on the clock of the program's spans
 * the device's times first put back on the host's clock, from which
   they drift within a run of the profiler (:func:`align`).
 
-``run.py`` has no hook for a segment of a reader's own: the segment takes
-the cell's caller (``one``), the device sync and the list of the
-segment's call records from ``run_cell``'s frame (:func:`_harness`).  A
-program without the recorder (an older checkout) runs no segment, and
-every reader of it returns None.
+The segment takes the cell's caller, the device and its sync, the entry
+point and the next call id from the readers' ``run.Context``, and adds
+its call records to the context's ``reader_calls``.  A program without
+the recorder (an older checkout), a context without a caller, or a
+device other than CUDA runs no segment, and every reader of it returns
+None.
 """
 from __future__ import annotations
 
@@ -156,8 +157,11 @@ def align(ops, window_ns=10e6) -> list:
     the clock's error at that launch.  Taking the first window's as the
     latency (the profiler starts with the clocks agreeing), each later
     window's excess is its error, and every operation is shifted by the
-    error interpolated at its launch.  A window spans ``window_ns`` of
-    launches, longer than a kernel that queues every launch behind it."""
+    error interpolated at its launch.  Where the first window's least
+    latency is negative (the clocks disagreed from the start), that is
+    its error: no operation starts before its launch.  A window spans
+    ``window_ns`` of launches, longer than a kernel that queues every
+    launch behind it."""
     if not ops:
         return ops
     by_launch = sorted(ops, key=lambda op: op[2])
@@ -170,7 +174,7 @@ def align(ops, window_ns=10e6) -> list:
                 when.append(t)
                 least.append(a - t)
             group = []
-    error = [e - least[0] for e in least]
+    error = [e - max(least[0], 0.0) for e in least]
 
     def at(t):
         k = bisect.bisect_left(when, t)
@@ -181,17 +185,6 @@ def align(ops, window_ns=10e6) -> list:
         t0, t1 = when[k - 1], when[k]
         return error[k - 1] + (error[k] - error[k - 1]) * (t - t0) / (t1 - t0)
     return [(a - at(t), b - at(t), t) for a, b, t in ops]
-
-
-def _harness():
-    """The locals of ``run.py::run_cell``, the caller of a metric's
-    reader, or None."""
-    f = sys._getframe(1)
-    while f is not None:
-        if f.f_code.co_name == "run_cell" and "one" in f.f_locals:
-            return f.f_locals
-        f = f.f_back
-    return None
 
 
 class Segment:
@@ -281,21 +274,20 @@ def _warm_up(torch, activities, sync):
 def segment(ctx):
     """The segment of this run (run once, on the first reader's call),
     or None where it cannot run: no CUDA device, a program without the
-    recorder, or no harness to call."""
+    recorder, or no caller on ``ctx``."""
     if "program_segment" in ctx.__dict__:
         return ctx.program_segment
     ctx.program_segment = None
-    h = _harness()
     try:
         from admm_tpu_torch.diag import profile
     except ImportError:
         return None
-    if (h is None or getattr(profile, "record", None) is None
-            or getattr(h.get("dev"), "type", None) != "cuda"):
+    if (ctx.one is None or getattr(profile, "record", None) is None
+            or getattr(ctx.device, "type", None) != "cuda"):
         return None
     import torch
 
-    one, sync, k = h["one"], h["sync"], h["k"]
+    one, sync, k = ctx.one, ctx.sync, ctx.next_call
     activities = [torch.profiler.ProfilerActivity.CUDA]
     _warm_up(torch, activities, sync)
     calls, errors = [], []
@@ -317,7 +309,7 @@ def segment(ctx):
                 calls.append({"id": k, "t0": c0, "t1": c1,
                               "ok": out is not None,
                               "iterations": (0 if out is None
-                                             else h["entry"].iterations(out))})
+                                             else ctx.entry.iterations(out))})
                 k += 1
                 if time.perf_counter() - start >= SEGMENT_S:
                     break
@@ -326,7 +318,8 @@ def segment(ctx):
         prof.stop()
     for err in errors:
         print(err, file=sys.stderr)
-    h["seg_calls"].extend(calls)
+    ctx.reader_calls.extend(calls)
+    ctx.next_call = k
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:

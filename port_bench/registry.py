@@ -17,8 +17,14 @@ benchmark's folder, and any folder a caller puts before it):
 * ``roofline/<kernel>.py``: a kernel's Python wrapper, its name in the
   trace, and its operations and bytes per launch; a traced run counts the
   launches of every kernel found here;
+* ``reference/<name>.py``: the plain reference an entry point imports and
+  calls in the program's place, in float64 for the check (and in the
+  control's precision with ``run.py --control``), importing nothing of
+  the program;
 * ``limits/<cell>.json``: each number the cell's check compares, with its
-  limit.
+  limit;
+* ``tests/tiny/<config>.json``: the sizes that shrink the configuration
+  for the benchmark's own CPU tests (the same regime, the same keys).
 
 A later cell, configuration, mix or metric is one more file: nothing
 here names any of them.

@@ -88,9 +88,17 @@ class Reservoir:
 class Context:
     """What a metric's reader reads: the calls of the window, the set-up
     time and, in a traced run, the window's spans and the profiled
-    segment (its summary, its calls and its kernels' work)."""
+    segment (its summary, its calls and its kernels' work).
 
-    def __init__(self, setup_s, calls):
+    A reader that runs calls of its own (``program_spans.segment``) takes
+    from here the cell's caller ``one(k)``, the device and its ``sync``,
+    the entry point, the id of its first call (``next_call``, which it
+    moves on) and the list its call records join (``reader_calls``: they
+    count in the run's ``attempted`` and ``failed``).  Without a caller
+    (``one`` None) no reader runs a call."""
+
+    def __init__(self, setup_s, calls, one=None, sync=None, device=None,
+                 entry=None, next_call=0):
         self.setup_s = setup_s
         self.calls = calls          # dicts: id, t0, t1, ok, iterations
         self.spans = None
@@ -98,6 +106,12 @@ class Context:
         self.segment_calls = []     # the same, with each answer's flops
         self.kernel_work = {}
         self.kernels = {}
+        self.one = one
+        self.sync = sync
+        self.device = device
+        self.entry = entry
+        self.next_call = next_call
+        self.reader_calls = []
 
     @property
     def window_s(self) -> float:
@@ -273,7 +287,8 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
         print(err, file=sys.stderr)
     print("launches " + json.dumps(launch_counts), file=sys.stderr)
 
-    ctx = Context(setup_s, calls)
+    ctx = Context(setup_s, calls, one=one, sync=sync, device=dev,
+                  entry=entry, next_call=k)
     ctx.spans = spans
     if segment.events is not None:
         ops = launches.ops_by_call(kernel_mods)
@@ -312,7 +327,8 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
     worst = checks.worst(numbers)
     print(f"check: {len(numbers)} answers in "
           f"{time.perf_counter() - c0:.1f} s", file=sys.stderr)
-    failed = sum(not c["ok"] for c in calls + seg_calls)
+    run = calls + seg_calls + ctx.reader_calls
+    failed = sum(not c["ok"] for c in run)
     judged = {n: {"value": float(worst.get(n, float("inf"))),
                   "limit": float(lim)} for n, lim in limits.items()}
     correct = (failed == 0 and bool(numbers)
@@ -326,7 +342,7 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
     if dev.type == "cuda":
         device_info["power_limit_w"] = power_limit_w()
     result = {"correct": bool(correct),
-              "attempted": len(calls) + len(seg_calls),
+              "attempted": len(run),
               "failed": failed, "metrics": values, "device": device_info}
     if trace and ctx.segment:
         device_info["busy_s"] = ctx.segment["busy_s"]

@@ -1,6 +1,7 @@
 """Fixtures of the benchmark's own CPU tests (``python -m pytest
 port_bench/tests -q``): the repository root on ``sys.path`` and tiny
-copies of the cells' configurations and traffic mixes."""
+copies of the cells' configurations (``tiny/<config>.json``) and traffic
+mixes."""
 import json
 import sys
 from pathlib import Path
@@ -12,25 +13,25 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 BENCH = ROOT / "port_bench"
-#: Tiny shapes of the two configurations: the same regimes (tall, wide).
-TINY = {"lasso_flagship": dict(n=300, p=40, nonzeros=8),
-        "lasso_wide": dict(n=80, p=160, nonzeros=8, nlambda=10)}
 
 
-def write_tiny(root: Path) -> Path:
-    """Tiny copies of every configuration and mix under ``root``, found
-    before the benchmark's own (a pool of 2 x 2 problems, 3 checked; the
-    wide cells on 10 lambdas)."""
+def write_tiny(root: Path, extra: Path = None) -> Path:
+    """Tiny copies of every configuration that has a
+    ``tests/tiny/<config>.json`` (its sizes: the same regime) and of every
+    mix under ``root``, found before the benchmark's own (a pool of 2 x 2
+    problems, 3 checked); ``extra``, a folder of further cells laid out as
+    the benchmark's, adds its own and takes the place of a namesake."""
     for kind in ("configs", "traffic"):
         (root / kind).mkdir(parents=True, exist_ok=True)
-    for name, sizes in TINY.items():
-        cfg = json.loads((BENCH / "configs" / f"{name}.json").read_text())
-        cfg.update(sizes)
-        (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
-    for path in (BENCH / "traffic").glob("*.json"):
-        mix = json.loads(path.read_text())
-        mix.update(designs=2, responses_per_design=2, check_calls=3)
-        (root / "traffic" / path.name).write_text(json.dumps(mix))
+    for src in [BENCH] + ([Path(extra)] if extra else []):
+        for tiny in sorted((src / "tests" / "tiny").glob("*.json")):
+            cfg = json.loads((src / "configs" / tiny.name).read_text())
+            cfg.update(json.loads(tiny.read_text()))
+            (root / "configs" / tiny.name).write_text(json.dumps(cfg))
+        for path in sorted((src / "traffic").glob("*.json")):
+            mix = json.loads(path.read_text())
+            mix.update(designs=2, responses_per_design=2, check_calls=3)
+            (root / "traffic" / path.name).write_text(json.dumps(mix))
     return root
 
 

@@ -8,12 +8,16 @@ import json
 from types import SimpleNamespace as S
 
 import numpy as np
+import pytest
+import torch
 
 from conftest import ROOT
 from port_bench import program_spans as ps
 
 NEW = ("entry_idle_ms", "pack_idle_ms", "setup_idle_ms", "launches_per_fit",
        "niter_per_fit", "engine_reads_per_iter", "engine_launches_per_iter")
+#: Every reader of the program's segment.
+SEGMENT_READERS = NEW + ("engine_graphed_share",)
 
 
 def _span(name, t0, t1):
@@ -104,6 +108,18 @@ def test_align_takes_out_a_drift_of_the_device_clock():
     assert ps.align([]) == []
 
 
+def test_align_takes_out_a_device_clock_that_starts_early():
+    """The device's clock 0.2 ms early from the profiler's start: aligned,
+    no operation starts before its launch, and each keeps its latency."""
+    launch = np.arange(0, 3e7, 1e6)
+    wait = 5e3 + (launch % 3e6 == 0) * 2e4
+    ops = [(t + w - 2e5, t + w - 2e5 + 1e3, t) for t, w in zip(launch, wait)]
+    got = ps.align(ops)
+    assert min(a - t for a, _, t in ops) < 0
+    assert np.allclose([a - t for a, _, t in got], wait - wait.min())
+    assert [b - a for a, b, _ in got] == [b - a for a, b, _ in ops]
+
+
 def test_a_traced_cpu_run_reports_none_of_the_new_metrics(tiny_registry):
     from port_bench.run import run_cell
 
@@ -133,3 +149,63 @@ def test_span_ms_counts_a_name_once_where_it_nests_in_itself():
     assert got["fit"] == (fit.t1 - fit.t0) * 1e-6
     assert got["h2d"] == ((h2d_a.t1 - h2d_a.t0) + (h2d_b.t1 - h2d_b.t0)) * 1e-6
     assert seg.att["idle_by_name"][ps.OUTSIDE] == 0
+
+
+def _calls(n):
+    return [{"id": k, "t0": float(k), "t1": k + 0.5, "ok": True,
+             "iterations": 1} for k in range(n)]
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_no_segment_without_a_caller_or_a_card(device):
+    """A Context without the harness's fields, or with a caller on the
+    CPU: every reader of the program's segment returns None, raises
+    nothing, and calls nothing."""
+    from port_bench.registry import Registry
+    from port_bench.run import Context
+
+    reg = Registry(json.loads((ROOT / "BENCHMARK.json").read_text()))
+    made = []
+    for name in SEGMENT_READERS:
+        ctx = Context(1.0, _calls(3))
+        if device is not None:
+            ctx = Context(1.0, _calls(3), one=made.append,
+                          sync=lambda: None, device=torch.device(device),
+                          entry=None, next_call=3)
+        assert reg.module("metrics", name).read(ctx) is None, name
+        assert ctx.program_segment is None and ctx.reader_calls == []
+    assert made == []
+
+
+_OWN_CALL = """
+def read(ctx):
+    k = ctx.next_call
+    out = ctx.one(k)
+    ctx.reader_calls.append({"id": k, "t0": 0.0, "t1": 0.0, "ok": False,
+                             "iterations": ctx.entry.iterations(out)})
+    ctx.next_call = k + 1
+    return float(k)
+"""
+
+
+def test_a_readers_own_calls_count_in_the_run(tmp_path):
+    """A reader runs a call of its own through the Context's caller, from
+    the next call id; the run counts it in ``attempted``, and as failed
+    where the reader says so."""
+    from conftest import write_tiny
+    from port_bench.registry import Registry
+    from port_bench.run import run_cell
+
+    root = write_tiny(tmp_path / "tiny")
+    (root / "metrics").mkdir()
+    (root / "metrics" / "own_call.py").write_text(_OWN_CALL)
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["per_layer"] = [{"name": "own_call", "unit": "id",
+                           "better": "lower", "source": "program_span",
+                           "layer": "entry points", "moves": "fits_per_s",
+                           "workloads": ["lasso_flagship.path"]}]
+    res = run_cell(Registry(bench, roots=[root]), "lasso_flagship.path", 13,
+                   0.1, True, "cpu")
+    window = res["attempted"] - 1
+    assert res["metrics"]["own_call"]["value"] == window
+    assert res["failed"] == 1 and not res["correct"]

@@ -104,3 +104,38 @@ def test_a_traced_run_reports_the_program_span_metrics(cuda):
     for name in ("entry_idle_ms", "pack_idle_ms", "setup_idle_ms",
                  "launches_per_fit", "niter_per_fit"):
         assert res["metrics"][name]["value"] > 0, name
+
+
+def test_the_segment_takes_its_caller_from_the_context(cuda):
+    """``program_spans.segment`` runs the Context's caller from its next
+    call id under one request id a call, adds the records to
+    ``reader_calls`` with the entry's iterations, and moves the id on."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    import admm_tpu_torch as port
+    from port_bench.run import Context
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(200, 20)).astype(np.float32)
+    y = (X[:, 0] + rng.normal(size=200)).astype(np.float32)
+    ids = []
+
+    def one(k):
+        ids.append(k)
+        return port.lasso_path(X, y, nlambda=5, device="cuda")
+
+    ctx = Context(1.0, [{"id": 0, "t0": 0.0, "t1": 1.0, "ok": True,
+                         "iterations": 0}], one=one,
+                  sync=lambda: torch.cuda.synchronize(cuda), device=cuda,
+                  entry=SimpleNamespace(iterations=lambda out: 7),
+                  next_call=1000)
+    seg = ps.segment(ctx)
+    assert seg is not None and ps.segment(ctx) is seg
+    assert ids == list(range(1000, 1000 + len(ids))) and ids
+    assert [c["id"] for c in ctx.reader_calls] == ids
+    assert all(c["ok"] and c["iterations"] == 7 for c in ctx.reader_calls)
+    assert ctx.next_call == 1000 + len(ids)
+    assert seg.requests == set(ids) and seg.spans
+    assert {s.request for s in seg.spans} <= set(ids)

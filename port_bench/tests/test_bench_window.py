@@ -44,6 +44,16 @@ def test_p95_is_over_all_calls():
     assert np.isclose(_read("fit_ms_p95", ctx), 200.0)
 
 
+def test_traced_p95_is_the_same_arithmetic_over_the_traced_window():
+    rng = np.random.default_rng(1)
+    times = list(rng.uniform(0.01, 0.03, 300)) + [0.1] * 10
+    ctx = Context(1.0, _calls(times))
+    assert np.isclose(_read("fit_ms_p95.traced", ctx),
+                      np.percentile(times, 95) * 1e3)
+    assert np.isclose(_read("fit_ms_p95.traced", ctx),
+                      _read("fit_ms_p95", ctx))
+
+
 def test_mfu_counts_every_completed_call():
     """Over the profiled segment's length in the trace, not the window's;
     a failed call adds nothing, and a call with no count leaves it out."""
