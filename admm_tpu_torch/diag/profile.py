@@ -21,16 +21,18 @@ Usage::
 **Spans.** The program marks its layers with :func:`span`: ``fit`` (an
 entry point), ``validate``, ``h2d`` (inputs to the device), ``setup``
 (standardization, the lambda grid, the ridge inverse or the spectral
-radius), ``cv_fold``, ``solve`` (a kernel launch, ``kernel=<name>``, or
-an engine solve, ``kernel="engine"``) and ``pack`` (the answer to the
-host), with :func:`span` around a block or :func:`spanned` on a
-function.  Off, which is the default, a span is one check of a module
-global and records nothing.  Inside :func:`record` (or :func:`trace`)
-each span keeps its name, its start and end on ``time.time_ns()`` (the
-clock of the profiler's Chrome trace: ``baseTimeNanoseconds + ts *
-1000``), its parent, a request id and its attributes; nothing is synced
-and nothing is read from the device.  The outermost span of a call opens
-a new request id, unless the caller set one with :func:`request`.
+radius; LAD's inverse Gram matrix, ``part="gram"``, and hat matrix,
+``part="hat"``), ``cv_fold``, ``solve`` (a kernel launch,
+``kernel=<name>``, or an engine solve, ``kernel="engine"``) and ``pack``
+(the answer to the host), with :func:`span` around a block or
+:func:`spanned` on a function.  Off, which is the default, a span is
+one check of a module global and records nothing.  Inside
+:func:`record` (or :func:`trace`) each span keeps its name, its start and
+end on ``time.time_ns()`` (the clock of the profiler's Chrome trace:
+``baseTimeNanoseconds + ts * 1000``), its parent, a request id and its
+attributes; nothing is synced and nothing is read from the device.  The
+outermost span of a call opens a new request id, unless the caller set
+one with :func:`request`.
 
 **Counters.** :func:`count` adds to host integers that are always kept
 (:func:`counts`): the kernels' launches (``kernel.launches.<name>``),

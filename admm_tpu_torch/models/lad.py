@@ -40,6 +40,7 @@ from ..core.engine import (ProblemOps, col, make_fadmm_solver, make_state,
                            make_traced_solve)
 from ..core.prox import l2norm, sqnorm
 from ..data.standardize import recover, standardize
+from ..diag import profile
 from ..kernels import lad as lad_kernel
 from ..linalg import chol_inverse, dot, gram
 from ..parallel.mesh import blockwise, is_sharded
@@ -106,6 +107,7 @@ def _lad_ops(Xs, ys, Ginv, ynorm, n, p, tau=0.5) -> ProblemOps:
     )
 
 
+@profile.spanned("setup", part="gram")
 def _lad_setup(X, y, intercept):
     """Standardized data with the free intercept column, the inverse Gram
     matrix and ``||ys||``: ``(Xa, ys, stats, Ginv, ynorm)``.
@@ -136,6 +138,7 @@ def _lad_setup(X, y, intercept):
     return Xa, ys, stats, Ginv, l2norm(ys)
 
 
+@profile.spanned("setup", part="hat")
 def _hat_matrix(Xa, Ginv):
     """The dense projection ``Xa (Xa'Xa)^-1 Xa'`` the kernel iterates
     against (reference: src/ADMMLAD.h:182-203)."""
