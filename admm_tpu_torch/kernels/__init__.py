@@ -5,7 +5,7 @@ a CUDA C++ kernel for Hopper (``csrc/*.cu``, built by :mod:`._build` at
 first use) and a wrapper that launches it for CUDA tensors and runs the
 plain PyTorch form for CPU tensors.  Importing this package builds nothing.
 
-The six kernels, by the name their launch count goes under
+The seven kernels, by the name their launch count goes under
 (:data:`KERNELS`):
 
 * ``tall_path_batch`` (:mod:`.tall_path`): tall Lasso/Enet path, all
@@ -14,6 +14,8 @@ The six kernels, by the name their launch count goes under
   over lambda;
 * ``wide_path_batch`` (:mod:`.wide_path`): wide Lasso/Enet path, all
   lambdas at once, per-lane adaptive rho;
+* ``wide_path_scan`` (:mod:`.wide_path`): the same, one lane warm-started
+  over lambda;
 * ``lad_solve`` (:mod:`.lad`): one LAD solve against the hat matrix;
 * ``bp_batch_solve`` (:mod:`.bp`): m Basis-Pursuit signals against one A;
 * ``glm_batch_path`` (:mod:`.glm`): fixed-majorizer GLM path (binomial,
@@ -27,7 +29,7 @@ from . import bp, glm, lad, tall_path, wide_path
 #: The kernels, by the name their launch count goes under: the counter
 #: ``kernel.launches.<name>`` of :mod:`admm_tpu_torch.diag.profile`.
 KERNELS = ("tall_path_batch", "tall_path_scan", "wide_path_batch",
-           "lad_solve", "bp_batch_solve", "glm_batch_path")
+           "wide_path_scan", "lad_solve", "bp_batch_solve", "glm_batch_path")
 
 
 def launch_counts() -> dict:

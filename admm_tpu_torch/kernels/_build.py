@@ -55,6 +55,9 @@ _ENTRIES = {
                             _F, _F, _F, _F, _I, _F, _P],
     "admm_wide_path_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
+    "admm_wide_path_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I,
+                            _P],
     "admm_lad_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _F, _F, _F, _I, _F, _P],
     "admm_bp_batch_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

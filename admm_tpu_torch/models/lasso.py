@@ -42,6 +42,7 @@ from ..core.prox import enet_prox, l2norm, sqnorm
 from ..data.standardize import StdStats, recover, standardize
 from ..diag import profile
 from ..kernels import tall_path, wide_path
+from ..kernels._common import sm_count
 from ..linalg import dot, gram, ridge_inverse, spectral_radius_gram, spectral_radius_sym
 from ..parallel.mesh import is_sharded, put_dim_sharded
 
@@ -147,6 +148,17 @@ def _use_kernel_tall(p: int, dtype) -> bool:
     """Tall path kernels: float32, and p no larger than the kernels take
     (``p <= kernels.tall_path.MAX_P``)."""
     return dtype == torch.float32 and tall_path.fits(p)
+
+
+def _use_kernel_wide_scan(Xs) -> bool:
+    """Wide scan kernel: float32 and all of X on one device; on a card
+    also a block's slices of X and its copy of the lane in one block's
+    shared memory at the card's block count
+    (``kernels.wide_path.scan_fits``).  The plain form has no such limit."""
+    if Xs.dtype != torch.float32 or is_sharded(Xs):
+        return False
+    return (Xs.device.type != "cuda"
+            or wide_path.scan_fits(*Xs.shape, sm_count(Xs.device)))
 
 
 def _use_kernel_wide(n: int, p: int, dtype, Xs=None) -> bool:
@@ -402,6 +414,15 @@ def _wide_engine(Xs, ys, lam_first, rho0, alpha, enet_lambda0_scale,
 def _solve_path_wide(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel, alpha,
                      enet_lambda0_scale, trace_len=None, pf=None,
                      lambda0_pf=None, bounds=None):
+    # As in the tall regime: factors, boxes and traced solves take the
+    # engine, and so do shapes past the scan kernel's rule.
+    if (trace_len is None and pf is None and bounds is None
+            and _use_kernel_wide_scan(Xs)):
+        lambda0, sprad, rho = _wide_setup(Xs, ys, ilams[0], rho0, alpha,
+                                          enet_lambda0_scale)
+        return (*wide_path.wide_path_scan(
+            Xs.contiguous(), ys.contiguous(), ilams.contiguous(), rho,
+            sprad, lambda0, eps_abs, eps_rel, alpha, maxit), None)
     st0, solve, report = _wide_engine(Xs, ys, ilams[0], rho0, alpha,
                                       enet_lambda0_scale, pf, lambda0_pf,
                                       bounds)

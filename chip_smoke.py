@@ -14,13 +14,14 @@ Phases, in order:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions
    and the TF32 settings, which must be off;
 2. the kernel build, timed;
-3. each of the six CUDA kernels against its plain PyTorch version on the
+3. each of the seven CUDA kernels against its plain PyTorch version on the
    same inputs at the main path's shapes (the flagship 10000 x 1000 Lasso
-   problem with 100 lambdas, the wide 1000 x 2000 one, LAD at 1000 x 500
+   problem with 100 lambdas, the wide 1000 x 2000 one in batch and in
+   scan, which must equal its plain form to the bit, LAD at 1000 x 500
    and 5000 x 1000, BP at 1000 x 2000 with 100 signals and with one, the
    GLM path at 2000 x 200 with 30 lambdas for the logistic and Huber
    losses and at 10000 x 1000 with 100 lambdas for the logistic loss), at
-   the kernel tests' bars; all six kernels (cooperative grids that add
+   the kernel tests' bars; all seven kernels (cooperative grids that add
    the blocks' partial sums in a fixed order) are also launched twice on
    the same inputs and must give identical bits (LAD at both sizes);
 4. the main paths through the public entry points on the card, with every
@@ -58,10 +59,10 @@ Phases, in order:
    (3 for the larger solves) CUDA-event timings after a warm-up, each
    kernel's time beside its bound (the larger of bytes over 3.35 TB/s and
    operations over 67 TFLOP/s float32, for the iterations this run's data
-   needed); for the tall scan and LAD kernels the grid, the grid syncs and
-   the time per iteration over the run (LAD: its ring, and the floor of
-   streaming H from device memory every iteration); for the tall batch,
-   wide, GLM and BP kernels the grid, the grid syncs per iteration, the
+   needed); for the tall and wide scan and LAD kernels the grid, the grid
+   syncs and the time per iteration over the run (LAD: its ring, and the
+   floor of streaming H from device memory every iteration); for the tall
+   batch, wide, GLM and BP kernels the grid, the grid syncs per iteration, the
    time per iteration of the slowest lane and the time per iteration with
    every lane active; as yardsticks the port never calls, ``torch.mv(H,
    v)`` for one LAD iteration's product and a float32 100 x p x p product
@@ -500,7 +501,8 @@ def activeset_problem(n, p, m, seed=123):
 @contextlib.contextmanager
 def activeset_threshold(lasso_mod, p):
     """``_ACTIVESET_AUTO_P`` set to ``p`` for as long as the ``with``
-    lasts (past a problem's width: the scan row's dense engine)."""
+    lasts (past a problem's width: the scan row's dense path, the wide scan
+    kernel where ``wide_path.scan_fits``, else the engine)."""
     saved = lasso_mod._ACTIVESET_AUTO_P
     lasso_mod._ACTIVESET_AUTO_P = p
     try:
@@ -642,6 +644,8 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
                 f"{label}: format_trace renders the table")
 
     # -- The active set: three modes at two sizes. ------------------------
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
     for na, pa, ma, ka in ACTIVESET_SIZES:
         Xa, ya = activeset_problem(na, pa, ma)
         size = f"{na} x {pa} x {ka}"
@@ -663,22 +667,25 @@ def families_phase(torch, smoke, record, X, y, Xw, yw, Xd, yd, Xl, yl):
         rows = {}
 
         def mode_call(mode, **kw):
-            # The scan row is the dense engine: the threshold past p.
+            # The scan row is the dense path: the threshold past p.
             with (activeset_threshold(lasso_mod, pa + 1) if mode == "scan"
                   else contextlib.nullcontext()):
                 return t.lasso_path(Xa, ya, nlambda=ka, path_mode=mode, **kw)
 
         for mode in ("activeset", "scan", "batch"):
             label = f"lasso_path(Xa, ya, path_mode={mode!r})  [{size}]"
-            kernel = mode == "batch" and wide_path.fits(na, pa)
+            kernel = {"batch": "wide_path_batch" if wide_path.fits(na, pa)
+                      else None,
+                      "scan": "wide_path_scan" if wide_path.scan_fits(
+                          na, pa, sms) else None}.get(mode)
             out, ms = counted(label, lambda: mode_call(mode),
-                              {"wide_path_batch": 1} if kernel else {})
+                              {kernel: 1} if kernel else {})
             if kernel:
                 ms = cuda_median_ms(torch, lambda: mode_call(mode), reps=3)
             gap = held(label, out, mode_call(mode, **f64))
             rows[mode] = [out, [ms]]
             print(f"  {label}: {ms:.1f} ms ("
-                  + ("wide kernel, median of 3, CUDA events" if kernel
+                  + (f"{kernel} kernel, median of 3, CUDA events" if kernel
                      else "first call, host clock; "
                      + ("batched engine" if mode == "batch" else "engine"))
                   + f"), niter total {int(to_np(out.niter).sum())}, max "
@@ -2462,6 +2469,11 @@ def main() -> int:
     tall_args = (Minv, Xty, ilams, rho, EPS, EPS, 1.0, MAXIT)
     wide_args = (Xs_w, ys_w, ilams_w, rhos_w, sprad_w, lambda0_w, EPS, EPS,
                  1.0, MAXIT)
+    # The scan starts from the rho of the grid's first lambda, as
+    # models/lasso.py::_solve_path_wide does.
+    rho_scan = _wide_setup(Xs_w, ys_w, ilams_w[0], -1.0, 1.0, False)[2]
+    scan_args = (Xs_w, ys_w, ilams_w, rho_scan, sprad_w, lambda0_w, EPS, EPS,
+                 1.0, MAXIT)
     bp_args = (At, Winv, AAAB, RHO_L1, EPS_L1, EPS_L1, MAXIT)
     bp1_args = (At, Winv, AAAB[:1].contiguous(), RHO_L1, EPS_L1, EPS_L1,
                 MAXIT)
@@ -2498,6 +2510,11 @@ def main() -> int:
                             "admm_tpu/ops/wide_path.py:45",
                             4 * (Nw * Pw + Nw + 2 * K + K * Pw + K),
                             4 * Nw * Pw),
+        # No Pallas kernel: the JAX package runs this path on its engine.
+        "wide_path_scan": (wide_path.wide_path_scan,
+                           wide_path.wide_path_scan_reference, scan_args,
+                           "admm_tpu_torch/csrc/wide_path.cu", None,
+                           4 * (Nw * Pw + Nw + K + K * Pw + K), 4 * Nw * Pw),
         "lad_solve": (lad.lad_solve, lad.lad_solve_reference, lad_args,
                       "admm_tpu_torch/csrc/lad.cu",
                       "admm_tpu/ops/lad_kernel.py:42",
@@ -2608,7 +2625,7 @@ def main() -> int:
         zk, nk = kernel(*args)
         torch.cuda.synchronize()
         if name in ("bp_batch_solve", "tall_path_scan", "wide_path_batch",
-                    "tall_path_batch"):
+                    "wide_path_scan", "tall_path_batch"):
             same_bits_twice(name, kernel, args, (zk, nk))
         zp, np_ = plain(*args)
         torch.cuda.synchronize()
@@ -2652,7 +2669,11 @@ def main() -> int:
         elif name != "bp_batch_solve":
             smoke.check(int(np.abs(nk - np_).max()) <= 1,
                         f"{name}: niter within 1 per lane")
-        if name == "wide_path_batch":
+        if name == "wide_path_scan":
+            smoke.check(err == 0.0 and bool((nk == np_).all()),
+                        f"{name}: equals its plain form to the bit, the same "
+                        "niter at every lambda")
+        if name in ("wide_path_batch", "wide_path_scan"):
             smoke.check(float(torch.abs(zk[0]).max()) == 0.0,
                         f"{name}: lane at lambda0 exactly 0")
         record[name] = dict(name=name, route="cuda", source=source,
@@ -2679,6 +2700,9 @@ def main() -> int:
         ("admm_lasso(Xw, yw).fit()  [wide batch]", "wide_path_batch",
          lambda: t.admm_lasso(Xw, yw).fit(),
          lambda: t.lasso_path(Xw, yw, path_mode="batch", **f64)),
+        ("lasso_path(Xw, yw)  [wide scan]", "wide_path_scan",
+         lambda: t.lasso_path(Xw, yw),
+         lambda: t.lasso_path(Xw, yw, path_mode="scan", **f64)),
         ("admm_lad(Xl, yl, intercept=False).fit()  [1000 x 500]",
          "lad_solve", lambda: t.admm_lad(Xl, yl, intercept=False).fit(),
          lambda: t.lad_fit(Xl, yl, intercept=False, **l1_f64)),
@@ -2714,6 +2738,8 @@ def main() -> int:
          lambda: t.poisson_lasso_path(Xg, yg["poisson"], nlambda=kg, **f64)),
     ]
     glm_labels = {c[0] for c in calls[-4:]}
+    # The paths that must launch their kernel once and nothing else.
+    once_labels = glm_labels | {"lasso_path(Xw, yw)  [wide scan]"}
     smoke.check(lad.fits(Xl5.shape[0]),
                 "LAD 5000 x 1000 takes the kernel route (fits(5000))")
     # Every path is driven with the counts at 0 just before it and read
@@ -2731,7 +2757,7 @@ def main() -> int:
                         f"{label}: no kernel on this path")
         else:
             smoke.check(after[kname] > 0, f"{label}: launched {kname}")
-        if label in glm_labels and kname is not None:
+        if label in once_labels and kname is not None:
             smoke.check(after == {**dict.fromkeys(after, 0), kname: 1},
                         f"{label}: {kname} once and no other launch "
                         f"(counts {after})")
@@ -2869,6 +2895,11 @@ def main() -> int:
     grid_line(f"lad_solve {Nl} x {Nl}", record["lad_solve"]["ms"],
               record["lad_solve"]["niter_total"], lad.launch_plan(Nl, sms),
               lad.SYNCS_PER_ITERATION, of="the one lane")
+    grid_line(f"wide_path_scan {Nw} x {Pw} x {K}", record["wide_path_scan"]["ms"],
+              record["wide_path_scan"]["niter_total"],
+              {**wide_path.scan_launch_plan(Nw, Pw, sms),
+               "threads": wide_path.SCAN_THREADS},
+              wide_path.SCAN_SYNCS_PER_ITERATION, of="the one lane")
     grid_line(f"wide_path_batch {Nw} x {Pw} x {K}",
               record["wide_path_batch"]["ms"], slowest["wide_path_batch"],
               wide_path.launch_plan(Nw, Pw, K, sms),

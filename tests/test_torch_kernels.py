@@ -150,6 +150,7 @@ def test_wrappers_run_plain_form_on_cpu_without_launching(tall_inputs):
     assert kernels.launch_counts() == {"tall_path_batch": 0,
                                        "tall_path_scan": 0,
                                        "wide_path_batch": 0,
+                                       "wide_path_scan": 0,
                                        "lad_solve": 0,
                                        "bp_batch_solve": 0,
                                        "glm_batch_path": 0}

@@ -26,7 +26,8 @@ from admm_tpu_torch.kernels import bp, glm, lad, tall_path, wide_path
 from admm_tpu_torch.linalg import chol_inverse, gram, tgram
 from admm_tpu_torch.models.glm import (_glm_auto_rho, _glm_fixed_minv,
                                        binomial, huber, prep_design)
-from admm_tpu_torch.models.lasso import _tall_setup, _wide_setup
+from admm_tpu_torch.models.lasso import (_auto_lambdas, _tall_setup,
+                                          _wide_setup)
 
 torch.set_num_threads(1)
 
@@ -673,6 +674,99 @@ def test_scan_and_wide_launches_give_identical_bits(tall_args, wide_args):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
+def _wide_scan_problem(dev, n, p, k, alpha, seed):
+    """The README's wide generator (100 nonzeros U(-1, 1), y = 5 + Xb +
+    N(0, 1)), standardized on the card, and the path's own grid (ratio
+    0.01, its top at lambda0) and set-up."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, p))
+    b = np.zeros(p)
+    idx = rng.choice(p, size=min(100, p), replace=False)
+    b[idx] = rng.uniform(-1, 1, idx.size)
+    f32 = dict(dtype=torch.float32, device=dev)
+    Xs, ys, stats = standardize(torch.as_tensor(X, **f32),
+                                torch.as_tensor(5 + X @ b + rng.normal(size=n),
+                                                **f32),
+                                standardize_x=True, intercept=True)
+    lams = _auto_lambdas(Xs, ys, stats, k, 0.01, alpha, alpha < 1, None,
+                         None)
+    ilams = (lams * n / stats.scale_y).contiguous()
+    lambda0, sprad, rho = _wide_setup(Xs, ys, ilams[0], -1.0, alpha,
+                                      alpha < 1)
+    return Xs.contiguous(), ys.contiguous(), ilams, rho, sprad, lambda0
+
+
+@pytest.mark.parametrize("n,p,k,alpha", [(1000, 2000, 100, 1.0),
+                                         (301, 1203, 20, 0.6)])
+def test_wide_scan_kernel_matches_plain(dev, n, p, k, alpha):
+    """The main path's 1000 x 2000 x 100 lambdas and a ragged shape (n and
+    p multiples of neither 4 nor the block count): the kernel equals its
+    plain form to the bit with the same niter per lambda, one launch a
+    path, and a second launch gives the same bits."""
+    args = (*_wide_scan_problem(dev, n, p, k, alpha, n + p), 1e-5, 1e-5,
+            alpha, 10000)
+    before = kernels.launch_counts()["wide_path_scan"]
+    x, niter = wide_path.wide_path_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wide_path_scan"] == before + 1
+    x_ref, n_ref = wide_path.wide_path_scan_reference(*args)
+    assert torch.equal(niter, n_ref)
+    assert torch.equal(x, x_ref)
+    again = wide_path.wide_path_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], x) and torch.equal(again[1], niter)
+
+
+def test_wide_scan_kernel_lambdas_at_maxit(dev):
+    """At eps 1e-7 and maxit 9 every lambda stops at maxit, and the next
+    one starts from where it stopped, as in the plain form."""
+    args = (*_wide_scan_problem(dev, 60, 150, 9, 1.0, 11), 1e-7, 1e-7, 1.0,
+            9)
+    x, niter = wide_path.wide_path_scan(*args)
+    x_ref, n_ref = wide_path.wide_path_scan_reference(*args)
+    assert bool(torch.all(niter == 9)) and torch.equal(niter, n_ref)
+    assert torch.equal(x, x_ref)
+
+
+def test_lasso_path_launches_the_wide_scan_kernel_once(dev, monkeypatch):
+    """The wide scan path on the card is one launch of the scan kernel and
+    nothing else, and it lands within the wide path's parity bar of the
+    engine's run of the same path."""
+    import admm_tpu_torch as t
+    from admm_tpu_torch.models import lasso
+
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(120, 300))
+    y = X[:, :8] @ rng.uniform(-1, 1, 8) + 0.5 * rng.normal(size=120)
+    before = kernels.launch_counts()
+    res = t.lasso_path(X, y, nlambda=30, device=dev)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **dict.fromkeys(kernels.KERNELS, 0), "wide_path_scan": 1}
+    monkeypatch.setattr(lasso, "_use_kernel_wide_scan", lambda *a: False)
+    eng = t.lasso_path(X, y, nlambda=30, device=dev)
+    assert kernels.launch_counts() == after
+    assert torch.equal(res.lambdas, eng.lambdas)
+    assert (res.coef - eng.coef).abs().max().item() <= 2e-4
+    assert abs(int(res.niter.sum()) - int(eng.niter.sum())) \
+        <= 0.02 * int(eng.niter.sum())
+
+
+def test_wide_scan_kernel_rejects_what_it_does_not_take(dev):
+    Xs, ys, ilams, rho, sprad, lambda0 = _wide_scan_problem(dev, 60, 150, 4,
+                                                            1.0, 3)
+    tail = (rho, sprad, lambda0, 1e-5, 1e-5, 1.0, 100)
+    with pytest.raises(TypeError):
+        wide_path.wide_path_scan(Xs.double(), ys, ilams, *tail)
+    with pytest.raises(ValueError):
+        wide_path.wide_path_scan(Xs, ys, ilams.cpu(), *tail)
+    n, p = 1000, 2945
+    assert not wide_path.scan_fits(n, p, 132)
+    with pytest.raises(ValueError, match="do not fit"):
+        wide_path.wide_path_scan(torch.zeros((n, p), device=dev),
+                                 torch.zeros((n,), device=dev), ilams, *tail)
+
+
 def test_tall_scan_kernel_largest_p(dev):
     """p = MAX_P is the most ``fits`` admits (the first batch kernel's 8p
     floats of shared memory; the scan kernel's blocks hold 7p) and Minv
@@ -1252,16 +1346,19 @@ def test_engine_graph_equals_the_eager_loop_on_the_card(dev, regime,
                                                         monkeypatch):
     """A single solve's chunks as a CUDA graph run the op-by-op loop's
     kernels in its order: ``lasso_path`` on the wide scan path (200 x
-    400) and the tall path with penalty factors gives the same beta,
-    niter and lambda to the bit as with the route forced to the eager
-    loop.  Every device iteration of the graphed run is a graphed one,
-    none of the eager run's; the second shape's call captures anew."""
+    400, sent to the engine: the wide scan kernel would take it) and the
+    tall path with penalty factors gives the same beta, niter and lambda
+    to the bit as with the route forced to the eager loop.  Every device
+    iteration of the graphed run is a graphed one, none of the eager
+    run's; the second shape's call captures anew."""
     import admm_tpu_torch as t
     from admm_tpu_torch.core import engine
     from admm_tpu_torch.diag import profile
+    from admm_tpu_torch.models import lasso
 
     shapes = ([(200, 400), (150, 320)] if regime == "wide_scan"
               else [(300, 40), (260, 30)])
+    monkeypatch.setattr(lasso, "_use_kernel_wide_scan", lambda *a: False)
 
     def call(n, p):
         rng = np.random.default_rng(n + p)

@@ -62,7 +62,8 @@ def kernel_spy(monkeypatch):
     calls = []
     for mod, name in ((tall_path, "tall_path_batch"),
                       (tall_path, "tall_path_scan"),
-                      (wide_path, "wide_path_batch")):
+                      (wide_path, "wide_path_batch"),
+                      (wide_path, "wide_path_scan")):
         real = getattr(mod, name)
 
         def spy(*a, _real=real, _name=name, **k):

@@ -136,9 +136,13 @@ def test_device_valued_counts_are_held_until_flush():
     assert profile.counts("test.")["test.host_count"] >= 2
 
 
-def test_engine_reads_are_its_iterations_and_two_a_solve():
-    """The wide scan path's engine (one ``_run`` a lambda): ``it`` read
-    once, ``done`` before every iteration and once more at convergence."""
+def test_engine_reads_are_its_iterations_and_two_a_solve(monkeypatch):
+    """The wide scan path's engine (one ``_run`` a lambda; sent to the
+    engine, since the wide scan kernel would take it): ``it`` read once,
+    ``done`` before every iteration and once more at convergence."""
+    from admm_tpu_torch.models import lasso
+
+    monkeypatch.setattr(lasso, "_use_kernel_wide_scan", lambda *a: False)
     X, y = _wide()
     before = profile.counts("engine.")
     res = t.lasso_path(X, y, nlambda=6, device="cpu")
