@@ -8,14 +8,16 @@ with restart).  The design is the same — an immutable state
 bundle of pure functions per model, and engine factories returning
 ``solve(state, maxit, eps_abs, eps_rel)`` — with the loops written out:
 
-* ``lax.while_loop`` becomes a Python loop that reads ``done`` on the host
-  once per iteration, so ``it`` is exact (the CUDA path kernels in
+* ``lax.while_loop`` becomes one host loop (:func:`_host_loop`), shared
+  by the single, batched and traced solves and by consensus
+  (:mod:`admm_tpu_torch.parallel.consensus`).  Op by op it reads the
+  host once an iteration, so ``it`` is exact (the CUDA path kernels in
   :mod:`admm_tpu_torch.kernels` are what remove that sync); on a CUDA
   device, for hooks that declare themselves capturable
-  (``ProblemOps.graph_safe``), a single solve instead runs chunks of
-  ``_CHUNK`` guarded iterations, each one replay of a CUDA graph, with one
-  host read a chunk (:func:`_chunked`); ``niter``, the iterates and rho are
-  the op-by-op loop's, to the bit;
+  (``ProblemOps.graph_safe``), it runs groups of ``_CHUNK`` guarded
+  iterations instead, each one replay of a CUDA graph, with one host
+  read a group; ``niter``, the iterates, rho and the trace rows are the
+  op-by-op loop's, to the bit;
 * ``vmap`` becomes an explicit leading lane axis: iterates are
   ``(..., dim)`` and per-lane scalars ``(...)``, and every reduction runs
   over the last axis, so one body serves a single lambda and a batch of
@@ -41,10 +43,10 @@ from ..diag import profile
 BIG_RESID = 9999.0  # sentinel used by the reference for "not yet computed"
 
 # Iterations queued on the device between two host reads of the stop flag
-# on the graph route (one read per chunk; a finished solve runs up to
-# ``_CHUNK - 1`` frozen iterations).  Measured on the H100 on the wide
-# scan path, 1000 x 2000 x 100 lambdas: 4 beats 8 and 16 (PERF.md
-# section 6).
+# on the graph route (one read per group; a finished solve runs up to
+# ``_CHUNK - 1`` frozen iterations).  Measured on the H100 (PERF.md
+# section 6): 4 beats 8 and 16 on the engine's wide scan path, 1000 x
+# 2000 x 100 lambdas, and 1, 2, 8 and 16 on consensus.
 _CHUNK = 4
 
 
@@ -220,33 +222,17 @@ def _count_loop(iterations, reads, niter, graphed: int = 0) -> None:
     profile.count("engine.graphed_iterations", graphed)
 
 
-def _count_single(it0: int, it: int, maxit) -> None:
-    """The counts of a single solve's loop: ``it`` read once, then
-    ``done`` before each iteration and once more unless ``maxit`` ended
-    the loop."""
-    _count_loop(it - it0, 1 + (it - it0) + (it < maxit), it)
-
-
-def _run(body, state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
-    """The host loop of a single solve: one ``done`` read per iteration.
-    ``it`` advances by exactly one per body call, so it is tracked on the
-    host after one initial read."""
-    eps_abs, eps_rel = _as_scalars(state, eps_abs, eps_rel)
-    it0 = it = int(state.it)
-    while it < maxit and not bool(state.done):
-        state = body(state, eps_abs, eps_rel)
-        it += 1
-    _count_single(it0, it, maxit)
-    return state
-
-
-def _route(state: ADMMState, ops: ProblemOps) -> str:
-    """How a single solve's loop runs: "graph" (:func:`_chunked`) when the
-    state is on a CUDA device and the hooks are capturable
-    (``ops.graph_safe``: nothing in them reads the host or runs a
-    collective); "eager" (:func:`_run`, one read of ``done`` an
-    iteration) otherwise."""
-    if ops.graph_safe and state.rho.device.type == "cuda":
+def _route(device, graph_safe: bool, mesh=None) -> str:
+    """How a host loop runs: "graph" (groups of ``_CHUNK`` guarded
+    iterations, each one replay of a CUDA graph) on a CUDA device when
+    every hook is capturable (``graph_safe``: nothing in them reads the
+    host or runs a collective) and so is the mesh
+    (:attr:`~admm_tpu_torch.parallel.mesh.Mesh.capturable`: its local
+    positions on one device, and no collective or NCCL's); "eager" (op by
+    op, one host read an iteration) otherwise: gloo's collectives run on
+    the host, and a graph captures the current device's work only."""
+    if (graph_safe and torch.device(device).type == "cuda"
+            and (mesh is None or mesh.capturable)):
         return "graph"
     return "eager"
 
@@ -290,45 +276,136 @@ def _graphed(advance, chunk, *args):
     return graph.replay
 
 
-def _keep(active, old: ADMMState, new: ADMMState) -> ADMMState:
-    """One guarded step: a state that was not active keeps its values (a
-    field the step left as it was stays that tensor)."""
-    return ADMMState(*(a if a is b else torch.where(active, b, a)
-                       for a, b in zip(old, new)))
+def _keep(active, old, new):
+    """One guarded step of any state ``NamedTuple`` (:class:`ADMMState`,
+    the consensus state): where ``active`` is False the old values stay.
+    A per-lane ``active`` broadcasts over each field's trailing axes; a
+    field the step left as it was stays that tensor, and None stays
+    None."""
+    def keep(a, b):
+        if a is b:
+            return a
+        act = active.reshape(active.shape + (1,) * (b.dim() - active.dim()))
+        return torch.where(act, b, a)
+    return type(old)(*map(keep, old, new))
 
 
-def _chunked(body):
-    """The graph route of a single solve: ``run(state, maxit, eps_abs,
-    eps_rel)``.
+def _active(state, maxit):
+    """``(active, running)``: the lanes that step, and the loop's flag
+    (some lane is neither done nor at ``maxit``).  A lane steps while it
+    is not done and the loop runs, as in the JAX package's batched loop:
+    lanes that are not done move in step, whatever their ``it``.  A
+    single solve (0-d) needs no reduction."""
+    free = ~state.done
+    run = free & (state.it < maxit)
+    if run.dim() == 0:
+        return run, run
+    running = torch.any(run)
+    return free & running, running
 
-    The path's state lives in static tensors; each call copies its
-    incoming state into them (a warm start, a refreshed ``aux``, a resumed
-    checkpoint) and runs chunks of ``_CHUNK`` guarded iterations, written
-    back in place: ``active = ~done & (it < maxit)`` keeps a finished
-    state by ``torch.where``, so ``niter``, the iterates and rho are those
-    of the loop that stops at once.  The host reads one flag a chunk.  On
-    a CUDA device the chunk is captured as a CUDA graph (:func:`_graphed`)
-    at the first call and replayed after, and captured again when the
-    state's shapes, dtypes or None pattern, ``maxit`` or the tolerances
-    change; elsewhere it runs op by op.  Returns copies, never the static
-    tensors."""
+
+def _trace_row(state) -> torch.Tensor:
+    """One trace row per lane, ``(..., 5)``: (eps_pri, r_pri, eps_dua,
+    r_dua, rho)."""
+    return torch.stack([state.eps_pri, state.r_pri, state.eps_dua,
+                        state.r_dua, state.rho], dim=-1)
+
+
+def _step(body, state, eps, active, buf):
+    """One iteration: ``body``, each lane's trace row into ``buf`` (or
+    None) at ``min(it, trace_len - 1)``, and the guard ``active`` (None:
+    every lane steps, unguarded)."""
+    new = body(state, *eps)
+    if buf is not None:
+        buf = buf.view(-1, *buf.shape[-2:])          # (lanes, trace_len, 5)
+        idx = torch.clamp(state.it, max=buf.shape[1] - 1).long()
+        idx = idx.reshape(-1, 1, 1).expand(-1, 1, 5)
+        row = _trace_row(new).reshape(-1, 1, 5)
+        if active is not None:
+            row = torch.where(active.reshape(-1, 1, 1), row,
+                              buf.gather(1, idx))
+        buf.scatter_(1, idx, row)
+    return new if active is None else _keep(active, state, new)
+
+
+def _host_loop(body, graph_safe: bool, mesh=None):
+    """The one host loop of the engines and of consensus: ``run(state,
+    maxit, eps_abs, eps_rel, trace_len=None) -> (state, trace)`` runs
+    ``body(state, eps_abs, eps_rel)`` until no lane is both unfinished and
+    under ``maxit``, stepping the lanes :func:`_active` names, so a lane's
+    ``it`` is its ``niter``.  With ``trace_len`` each lane records its row
+    at ``min(it, trace_len - 1)`` of a NaN buffer (``state.rho.shape +
+    (trace_len, 5)``) on every step it takes.
+
+    The route (:func:`_route`) sets how often the host reads:
+
+    * "eager": one read an iteration.  A single solve (0-d ``done``)
+      takes no guard and tracks ``it`` on the host after one read; lanes
+      read the flag "still running" and step under the guard.
+    * "graph": the state lives in static tensors, into which each call
+      copies its incoming state (a warm start, a refreshed ``aux``, a
+      resumed checkpoint) but for the fields that are the last call's
+      answer; groups of ``_CHUNK`` guarded iterations write it back in
+      place, and the host reads the flag once a group, so a finished
+      solve runs up to ``_CHUNK - 1`` frozen iterations and ``niter``,
+      the iterates and the trace rows stay those of the eager route.  On
+      a CUDA device the group is captured as a CUDA graph
+      (:func:`_graphed`) at the first call and replayed after, captured
+      again when the state's shapes, dtypes or None pattern, ``maxit``,
+      the tolerances or ``trace_len`` change; elsewhere (the CPU tests)
+      it runs op by op.  Returns copies of the fields the body moves,
+      never the static tensors.
+
+    Callers treat a returned state as immutable, as the engines' states
+    are: a new state is built out of place (``_replace``,
+    :func:`warm_start`), never written in place (no ``st.it.zero_()``).
+    The graph route relies on it: a field that is the very tensor the
+    last call returned is not copied in again, and a field the body
+    never moves comes back as the caller's own tensor.
+    """
     slot = {}
 
-    def build(state: ADMMState, maxit, eps_abs, eps_rel):
+    def trace_buffer(state, trace_len):
+        return None if trace_len is None else torch.full(
+            state.rho.shape + (trace_len, 5), float("nan"),
+            dtype=state.rho.dtype, device=state.rho.device)
+
+    def eager(state, maxit, eps, buf):
+        if state.done.dim() == 0:
+            # ``it`` advances by exactly one a step: read once, then
+            # ``done`` before each step and once more unless maxit ends.
+            it0 = it = int(state.it)
+            while it < maxit and not bool(state.done):
+                state = _step(body, state, eps, None, buf)
+                it += 1
+            _count_loop(it - it0, 1 + (it - it0) + (it < maxit), it)
+            return state
+        steps = 0
+        while True:
+            active, running = _active(state, maxit)
+            if not bool(running):
+                break
+            state = _step(body, state, eps, active, buf)
+            steps += 1
+        _count_loop(steps, steps + 1, state.it)
+        return state
+
+    def build(state, maxit, eps, buf):
         st = _clone(state)
-        eps = _as_scalars(state, eps_abs, eps_rel)
         more = torch.zeros((), dtype=torch.bool, device=state.rho.device)
 
-        def chunk(st, eps_abs, eps_rel):
+        def chunk(st, eps_abs, eps_rel, buf):
             """``_CHUNK`` guarded iterations, then the flag "still
             running"."""
             for _ in range(_CHUNK):
-                active = ~st.done & (st.it < maxit)
-                st = _keep(active, st, body(st, eps_abs, eps_rel))
-            return st, ~st.done & (st.it < maxit)
+                st = _step(body, st, (eps_abs, eps_rel),
+                           _active(st, maxit)[0], buf)
+            return st, _active(st, maxit)[1]
 
         def advance():
-            new, flag = chunk(st, *eps)
+            new, flag = chunk(st, *eps, buf)
+            # The fields the body moves (on the card, read at capture).
+            slot["moving"] = [s is not t for s, t in zip(st, new)]
             for s, t in zip(st, new):
                 if s is not t:
                     s.copy_(t)
@@ -336,90 +413,100 @@ def _chunked(body):
 
         graphed = st.rho.device.type == "cuda"
         if graphed:
-            advance = _graphed(advance, chunk, st, *eps)
-        # The graph reads and writes st, eps and more in place: they live
-        # as long as it does.
-        slot.update(st=st, eps=eps, more=more, advance=advance,
-                    graphed=graphed)
+            if mesh is not None:
+                mesh.warm()
+            advance = _graphed(advance, chunk, st, *eps, buf)
+        # The graph reads and writes st, eps, buf and more in place: they
+        # live as long as it does.
+        slot.update(st=st, eps=eps, buf=buf, more=more, advance=advance,
+                    graphed=graphed, out=(None,) * len(st))
 
-    def run(state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
+    def chunked(state, maxit, eps_abs, eps_rel, trace_len):
         key = (tuple(None if t is None else (t.shape, t.dtype, t.device)
-                     for t in state), maxit, float(eps_abs), float(eps_rel))
+                     for t in state), maxit, float(eps_abs), float(eps_rel),
+               trace_len)
         if slot.get("key") != key:
-            build(state, maxit, eps_abs, eps_rel)
+            build(state, maxit, _as_scalars(state, eps_abs, eps_rel),
+                  trace_buffer(state, trace_len))
             slot["key"] = key
-        st, more, advance = slot["st"], slot["more"], slot["advance"]
-        for s, t in zip(st, state):
-            if s is not None:
+        st, buf, more, advance = (slot[k] for k in
+                                  ("st", "buf", "more", "advance"))
+        # The state is immutable: a field that is the last call's answer
+        # is in place already.
+        for s, t, last in zip(st, state, slot["out"]):
+            if s is not None and t is not last:
                 s.copy_(t)
-        chunks = 1
+        if buf is not None:
+            buf.fill_(float("nan"))
+        groups = 1
         advance()
-        while bool(more):       # the one host read of each chunk
+        while bool(more):       # the one host read of each group
             advance()
-            chunks += 1
-        out = _clone(st)
-        _count_loop(chunks * _CHUNK, chunks, out.it,
-                    chunks * _CHUNK if slot["graphed"] else 0)
-        return out
+            groups += 1
+        # A field the body never moves keeps the caller's tensor.
+        out = type(st)(*(_clone(s) if m else t for s, t, m in
+                         zip(st, state, slot["moving"])))
+        slot["out"] = out
+        _count_loop(groups * _CHUNK, groups, out.it,
+                    groups * _CHUNK if slot["graphed"] else 0)
+        return out, _clone(buf)
+
+    def run(state, maxit, eps_abs, eps_rel, trace_len=None):
+        dev = state.rho.device
+        if _route(dev, graph_safe, mesh) == "eager":
+            buf = trace_buffer(state, trace_len)
+            return eager(state, maxit, _as_scalars(state, eps_abs, eps_rel),
+                         buf), buf
+        # The capture and the replays on the state's device (none on the
+        # CPU, where the group runs op by op).
+        with torch.cuda.device(dev if dev.type == "cuda" else -1):
+            return chunked(state, maxit, eps_abs, eps_rel, trace_len)
 
     return run
 
 
-def _solver(body, ops: ProblemOps):
-    """An engine's ``solve``: the graph route where :func:`_route` allows
-    it, the op-by-op loop otherwise."""
-    chunked = _chunked(body)
+def _solver(body, graph_safe: bool):
+    """An engine's ``solve(state, maxit, eps_abs, eps_rel) -> state`` on
+    its own :func:`_host_loop`, for one solve or a state of lanes alike;
+    ``solve.body`` and ``solve.graph_safe`` let a wrapper build another
+    loop on the same body."""
+    run = _host_loop(body, graph_safe)
 
     def solve(state: ADMMState, maxit, eps_abs, eps_rel) -> ADMMState:
-        if _route(state, ops) == "graph":
-            with torch.cuda.device(state.rho.device):
-                return chunked(state, maxit, eps_abs, eps_rel)
-        return _run(body, state, maxit, eps_abs, eps_rel)
+        return run(state, maxit, eps_abs, eps_rel)[0]
 
-    solve.body = body
+    solve.body, solve.graph_safe = body, graph_safe
     return solve
-
-
-def _trace_row(state: ADMMState) -> torch.Tensor:
-    """One trace row per lane, ``(..., 5)``: (eps_pri, r_pri, eps_dua,
-    r_dua, rho)."""
-    return torch.stack([state.eps_pri, state.r_pri, state.eps_dua,
-                        state.r_dua, state.rho], dim=-1)
 
 
 def make_traced_solve(solve, trace_len: int):
     """Wrap an engine's ``solve`` so a per-iteration residual trace is
-    recorded (counterpart of ``admm_tpu.core.engine.make_traced_solve``).
+    recorded (counterpart of ``admm_tpu.core.engine.make_traced_solve``
+    and, for a state of lanes, of ``make_batched_traced_solve``).
 
     The reference has residual-table printers wired into its engines but
     commented out of the loops (reference: src/ADMMBase.h:111-146, call
-    sites :196,204,213).  Here a preallocated ``(trace_len, 5)`` buffer of
-    NaN on the state's device, in its dtype, takes ``(eps_primal,
+    sites :196,204,213).  Here each lane writes ``(eps_primal,
     resid_primal, eps_dual, resid_dual, rho)`` at row ``min(it, trace_len
-    - 1)`` each iteration, written through a device index: the host loop
-    keeps its one ``done`` read per iteration and reads nothing else.
-    Rows past convergence stay NaN; iterations past ``trace_len``
-    overwrite the last row.
+    - 1)`` of a NaN buffer on the state's device, in its dtype, on every
+    step it takes, through a device index: the host loop reads nothing
+    more.  Rows past convergence stay NaN, so a lane's count of recorded
+    rows is its ``niter`` (up to ``trace_len``); iterations past
+    ``trace_len`` overwrite the last row.
 
     Returns ``solve_traced(state, maxit, eps_abs, eps_rel) -> (state,
-    buffer)``.
+    buffer)``, the buffer ``(trace_len, 5)`` for one solve and ``(k,
+    trace_len, 5)`` for k lanes.
     """
-    body = solve.body
+    run = _host_loop(solve.body, solve.graph_safe)
 
     def solve_traced(state: ADMMState, maxit, eps_abs, eps_rel):
-        eps_abs, eps_rel = _as_scalars(state, eps_abs, eps_rel)
-        buf = torch.full((trace_len, 5), float("nan"),
-                         dtype=state.rho.dtype, device=state.rho.device)
-        it0 = it = int(state.it)
-        while it < maxit and not bool(state.done):
-            idx = torch.clamp(state.it, max=trace_len - 1).long().reshape(1)
-            state = body(state, eps_abs, eps_rel)
-            buf.index_copy_(0, idx, _trace_row(state).reshape(1, 5))
-            it += 1
-        _count_single(it0, it, maxit)
-        return state, buf
+        return run(state, maxit, eps_abs, eps_rel, trace_len)
 
     return solve_traced
+
+
+make_batched_traced_solve = make_traced_solve
 
 
 def make_admm_solver(ops: ProblemOps, *, adapt_rho: bool = True,
@@ -453,7 +540,7 @@ def make_admm_solver(ops: ProblemOps, *, adapt_rho: bool = True,
             it=state.it + 1, done=done,
         )
 
-    return _solver(body, ops)
+    return _solver(body, ops.graph_safe)
 
 
 def make_fadmm_solver(ops: ProblemOps, *, adapt_rho: bool = False,
@@ -515,7 +602,7 @@ def make_fadmm_solver(ops: ProblemOps, *, adapt_rho: bool = False,
             it=state.it + 1, done=done,
         )
 
-    return _solver(body, ops)
+    return _solver(body, ops.graph_safe)
 
 
 def make_batched_solver(solve):
@@ -524,66 +611,7 @@ def make_batched_solver(solve):
     The state carries a leading lane axis; every iteration runs the
     engine body on all lanes at once and lanes that have converged are
     frozen, so their ``it`` is the per-lambda iteration count.  The loop
-    ends when no lane is both unconverged and under ``maxit``.
+    ends when no lane is both unconverged and under ``maxit``.  The same
+    :func:`_host_loop` as the single solve, with its own capture.
     """
-    body = solve.body
-
-    def solve_batched(states: ADMMState, maxit, eps_abs, eps_rel):
-        eps_abs, eps_rel = _as_scalars(states, eps_abs, eps_rel)
-        iterations = 0
-        while bool(torch.any(~states.done & (states.it < maxit))):
-            states = _freeze(states, body(states, eps_abs, eps_rel))
-            iterations += 1
-        _count_loop(iterations, iterations + 1, states.it)
-        return states
-
-    return solve_batched
-
-
-def _freeze(old: ADMMState, new: ADMMState) -> ADMMState:
-    """Lanes that were done before the step keep their state."""
-    d = old.done
-
-    def f(a, b):
-        if a is None:
-            return None
-        return torch.where(d.reshape(d.shape + (1,) * (b.dim() - d.dim())),
-                           a, b)
-    return ADMMState(*(f(a, b) for a, b in zip(old, new)))
-
-
-def make_batched_traced_solve(solve, trace_len: int):
-    """Batched-lane engine with a PER-LANE residual trace (counterpart of
-    ``admm_tpu.core.engine.make_batched_traced_solve``).
-
-    Lane l records its own row at ``min(it_l, trace_len - 1)`` of a
-    ``(k, trace_len, 5)`` buffer of NaN; lanes that were done before the
-    step stop recording, exactly as they stop iterating, so a lane's count
-    of recorded rows is its ``niter`` (up to ``trace_len``).  The rows are
-    written by indexed assignment on the device.
-
-    Returns ``solve_traced(states, maxit, eps_abs, eps_rel) -> (states,
-    buffer)``.
-    """
-    body = solve.body
-
-    def solve_batched_traced(states: ADMMState, maxit, eps_abs, eps_rel):
-        eps_abs, eps_rel = _as_scalars(states, eps_abs, eps_rel)
-        k = states.rho.shape[0]
-        dev = states.rho.device
-        buf = torch.full((k, trace_len, 5), float("nan"),
-                         dtype=states.rho.dtype, device=dev)
-        lanes = torch.arange(k, device=dev)
-        iterations = 0
-        while bool(torch.any(~states.done & (states.it < maxit))):
-            idx = torch.clamp(states.it, max=trace_len - 1).long()
-            active = ~states.done
-            states = _freeze(states, body(states, eps_abs, eps_rel))
-            buf[lanes, idx] = torch.where(active[:, None],
-                                          _trace_row(states),
-                                          buf[lanes, idx])
-            iterations += 1
-        _count_loop(iterations, iterations + 1, states.it)
-        return states, buf
-
-    return solve_batched_traced
+    return _solver(solve.body, solve.graph_safe)

@@ -18,7 +18,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..core.engine import ADMMState
+from ..core.engine import ADMMState, _keep, _trace_row
 
 
 class Trace(NamedTuple):
@@ -41,11 +41,8 @@ def traced_solve(body_fn, state: ADMMState, num_iters: int):
     recs = []
     st = state
     for _ in range(num_iters):
-        new = body_fn(st)
-        st = ADMMState(*(None if a is None else torch.where(st.done, a, b)
-                         for a, b in zip(st, new)))
-        recs.append(torch.stack([st.eps_pri, st.r_pri, st.eps_dua, st.r_dua,
-                                 st.rho]))
+        st = _keep(~st.done, st, body_fn(st))
+        recs.append(_trace_row(st))
     rec = torch.stack(recs)
     return st, Trace(eps_primal=rec[:, 0], resid_primal=rec[:, 1],
                      eps_dual=rec[:, 2], resid_dual=rec[:, 3], rho=rec[:, 4],

@@ -33,8 +33,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.engine import (ADMMState, ProblemOps, _adaptive_rho, col,
-                           make_admm_solver,
+from ..core.engine import (ADMMState, ProblemOps, _adaptive_rho,
+                           _count_loop, col, make_admm_solver,
                            make_batched_solver, make_batched_traced_solve,
                            make_fadmm_solver, make_state, make_traced_solve,
                            warm_start)
@@ -244,10 +244,12 @@ def _scan_path(st0, solve, report, ilams, maxit, eps_abs, eps_rel,
     """Warm-started loop over the lambda grid (any engine).
 
     With ``trace_len`` set, each lambda's solve records its per-iteration
-    residual trace (``core.engine.make_traced_solve``) and ``traces`` is
-    the (nlambda, trace_len, 5) stack; otherwise it is None.  ``refresh``
-    (optional) maps the warm-start iterate to a new ``st.aux`` at each
-    lambda: the per-lambda adaptive-majorizer hook of the GLM paths."""
+    residual trace (``core.engine.make_traced_solve``: the engine's one
+    host loop, on the graph route where the solve's hooks allow it) and
+    ``traces`` is the (nlambda, trace_len, 5) stack; otherwise it is
+    None.  ``refresh`` (optional) maps the warm-start iterate to a new
+    ``st.aux`` at each lambda: the per-lambda adaptive-majorizer hook of
+    the GLM paths."""
     solve_t = (None if trace_len is None
                else make_traced_solve(solve, trace_len))
     st = st0
@@ -545,9 +547,7 @@ def _solve_path_wide_activeset(Xs, ys, ilams, rho0, maxit, eps_abs,
         coefs.append(x)
         niter.append(it)
     # One read of ``done`` an iteration, counted once for the path.
-    for name in ("engine.iterations", "engine.host_reads",
-                 "solve.iterations"):
-        profile.count(name, sum(niter))
+    _count_loop(sum(niter), sum(niter), sum(niter))
     return (torch.stack(coefs),
             torch.tensor(niter, dtype=torch.int32, device=dev), None)
 

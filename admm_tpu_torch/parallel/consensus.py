@@ -39,11 +39,11 @@ may round differently on the card.  Kept exactly, since each moves
 
 The loop.  The JAX package runs the whole path as one compiled program
 (``lax.scan`` over lambda around ``lax.while_loop``).  Here each lambda
-runs in chunks of ``_CHUNK`` iterations queued on the device with no host
-read between them; a state that is done (or at ``maxit``) keeps its
-values (``torch.where``), and the host reads one flag per chunk.
-``niter``, the iterates and the trace rows are those of a loop that stops
-at once; the cost is up to ``_CHUNK - 1`` frozen iterations per lambda.
+runs on the engine's one host loop (``core/engine.py::_host_loop``): op
+by op with one host read an iteration, or, where the hooks and the mesh
+are capturable on a CUDA device, in groups of ``_CHUNK`` guarded
+iterations, one CUDA graph replay and one host read a group.
+``niter``, the iterates and the trace rows are the same on both routes.
 Every batched product runs in full float32 (TF32 stays off, as
 ``admm_tpu_torch.linalg`` says): the Boyd test at 1e-5 needs it.
 """
@@ -56,7 +56,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.engine import _graphed
+from ..core.engine import _host_loop
 from ..core.prox import soft_threshold
 from ..data.standardize import recover
 from ..data.standardize import standardize as standardize_data
@@ -67,12 +67,6 @@ from .mesh import all_gather, make_mesh
 
 BIG = 9999.0
 
-# Iterations queued on the device between two host reads of the stop
-# flag (one read per chunk).  Measured on the H100 (PERF.md section 6,
-# PR 11): as a CUDA graph, 4 beats 1, 2, 8 and 16 on the flagship and 1
-# and 8 on the wide path.
-_CHUNK = 4
-
 
 class _ConsensusState(NamedTuple):
     x: torch.Tensor         # (W, p) worker primal iterates
@@ -81,6 +75,12 @@ class _ConsensusState(NamedTuple):
     r2_local: torch.Tensor  # sum over workers of ||x_i - z||^2, lagged
     rho: torch.Tensor
     lam: torch.Tensor
+    # The last iteration's test, the trace row (r_pri the lagged one),
+    # kept only when a trace is recorded.
+    eps_pri: torch.Tensor
+    r_pri: torch.Tensor
+    eps_dua: torch.Tensor
+    r_dua: torch.Tensor
     it: torch.Tensor        # int32
     done: torch.Tensor      # bool
 
@@ -379,34 +379,6 @@ def _conlasso_x_update_maker(C, d):
 # The generic consensus engine
 # ---------------------------------------------------------------------------
 
-def _keep(active, old: _ConsensusState, new: _ConsensusState):
-    """One guarded step: a state that was not active keeps its values."""
-    return old._replace(
-        x=torch.where(active, new.x, old.x),
-        y=torch.where(active, new.y, old.y),
-        z=torch.where(active, new.z, old.z),
-        r2_local=torch.where(active, new.r2_local, old.r2_local),
-        it=old.it + active.to(old.it.dtype),
-        done=torch.where(active, new.done, old.done))
-
-
-# The state fields an iteration moves (rho and lam stay).
-_MOVING = ("x", "y", "z", "r2_local", "it", "done")
-
-
-def _route(dev, graph_safe: bool, mesh=None) -> str:
-    """How the chunks run: "graph" (one CUDA graph per chunk) on a CUDA
-    device when every hook is capturable and so is the mesh
-    (:attr:`~admm_tpu_torch.parallel.mesh.Mesh.capturable`: its local
-    positions on one device, and no collective or NCCL's); "eager" (op by
-    op) otherwise: gloo's collectives run on the host, and a graph
-    captures the current device's work only."""
-    if (graph_safe and torch.device(dev).type == "cuda"
-            and (mesh is None or mesh.capturable)):
-        return "graph"
-    return "eager"
-
-
 def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
                      eps_rel, *, nworkers: int, make_x_update: Callable,
                      master_prox: Callable, auto_rho: Callable,
@@ -431,12 +403,13 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
     1)`` of a NaN buffer while it runs; r_pri is the lagged residual the
     test used.
 
-    On a CUDA device each chunk is one CUDA graph, captured once per path
-    and replayed (:func:`~admm_tpu_torch.core.engine._graphed`), unless
-    ``graph_safe`` is False: a hook that reads the host inside an
+    Each lambda runs on the engine's host loop
+    (:func:`~admm_tpu_torch.core.engine._host_loop`), as a CUDA graph
+    captured once per path and replayed where its route allows: not when
+    ``graph_safe`` is False, since a hook that reads the host inside an
     iteration (the SVD's and the Cholesky's error checks, the parallel
     PAVA's loop) cannot be captured, nor can a gloo collective
-    (:func:`_route`).
+    (:func:`~admm_tpu_torch.core.engine._route`).
 
     Returns ``(coefs, niter, (x, y, z, rho), traces)``.
     """
@@ -445,8 +418,9 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
     W = nworkers
     sqrtW = math.sqrt(W)
     scalar = partial(torch.tensor, dtype=dtype, device=dev)
-    eps_rel = scalar(eps_rel)
-    abs_tol = math.sqrt(p * W) * scalar(eps_abs)
+    # The absolute tolerance, rounded in the path's dtype as on the device
+    # (a host float carries it into the loop exactly).
+    abs_tol = float(math.sqrt(p * W) * torch.tensor(eps_abs, dtype=dtype))
     rho0 = float(rho0)
     rho = (scalar(rho0) if rho0 > 0
            else torch.as_tensor(auto_rho(ilams[0]), dtype=dtype,
@@ -454,7 +428,7 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
     x_update = (make_x_update(Xb, yb, rho) if mesh is None
                 else _mesh_x_update(make_x_update, Xb, yb, rho, W, mesh))
 
-    def body(st: _ConsensusState):
+    def body(st: _ConsensusState, abs_tol, eps_rel):
         x = x_update(st.z, st.y, st.rho, st.x)
         # The one reduction of the iteration: a sum over the workers of
         # the replicated stack (an all-reduce over devices in the JAX
@@ -476,64 +450,33 @@ def _consensus_solve(Xb, yb, x0, y0, z0, ilams, rho0, maxit, eps_abs,
         r = x - z_new[None, :]
         r_pri = torch.sqrt(sr2)
         new = st._replace(x=x, y=st.y + st.rho * r, z=z_new,
-                          r2_local=torch.sum(r * r),
+                          r2_local=torch.sum(r * r), it=st.it + 1,
                           done=(r_pri < eps_pri) & (r_dua < eps_dua))
         if trace_len is None:
-            return new, None
-        return new, torch.stack([eps_pri, r_pri, eps_dua, r_dua, st.rho])
+            # Fields a step leaves as they were cost the guard nothing.
+            return new
+        return new._replace(eps_pri=eps_pri, r_pri=r_pri, eps_dua=eps_dua,
+                            r_dua=r_dua)
 
-    def chunk(st: _ConsensusState, buf):
-        """``_CHUNK`` guarded iterations, then the flag "still running"."""
-        for _ in range(_CHUNK):
-            active = ~st.done & (st.it < maxit)
-            new, rec = body(st)
-            if buf is not None:
-                # A (1,) index: a 0-d one would be read on the host.
-                idx = torch.clamp(st.it, max=trace_len - 1).long().reshape(1)
-                buf.index_copy_(0, idx, torch.where(
-                    active, rec[None], buf.index_select(0, idx)))
-            st = _keep(active, st, new)
-        return st, ~st.done & (st.it < maxit)
-
-    # The path's state lives in these tensors, updated in place.
+    run = _host_loop(body, graph_safe, mesh)
+    big = scalar(BIG)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
     st = _ConsensusState(
-        x=x0.clone(), y=y0.clone(), z=z0.clone(), r2_local=scalar(BIG),
-        rho=rho, lam=ilams[0].clone(),
-        it=torch.zeros((), dtype=torch.int32, device=dev),
-        done=torch.zeros((), dtype=torch.bool, device=dev))
-    buf = (None if trace_len is None else
-           torch.full((trace_len, 5), float("nan"), dtype=dtype, device=dev))
-    more = torch.zeros((), dtype=torch.bool, device=dev)
-
-    def advance():
-        new, flag = chunk(st, buf)
-        for f in _MOVING:
-            getattr(st, f).copy_(getattr(new, f))
-        more.copy_(flag)
-
-    if _route(dev, graph_safe, mesh) == "graph":
-        if mesh is not None:
-            mesh.warm()
-        advance = _graphed(advance, chunk, st, buf)
+        x=x0, y=y0, z=z0, r2_local=big, rho=rho, lam=ilams[0],
+        eps_pri=big, r_pri=big, eps_dua=big, r_dua=big, it=zero, done=false)
     coefs, niters, bufs = [], [], []
     for lam in ilams:
         # Warm start: keep x, y, z, rho; reset the sentinels
         # (reference: src/PADMMLasso.h:215-223).
-        st.lam.copy_(lam)
-        st.r2_local.fill_(BIG)
-        st.it.zero_()
-        st.done.zero_()
-        if buf is not None:
-            buf.fill_(float("nan"))
-        advance()
-        while bool(more):       # the one host read of each chunk
-            advance()
+        st, buf = run(st._replace(lam=lam, r2_local=big, it=zero,
+                                  done=false),
+                      maxit, abs_tol, eps_rel, trace_len)
         # The reported coefficients are the consensus z
         # (reference: src/ParLasso.cpp:99).
-        coefs.append(st.z.clone())
-        niters.append(st.it.clone())
-        if buf is not None:
-            bufs.append(buf.clone())
+        coefs.append(st.z)
+        niters.append(st.it)
+        bufs.append(buf)
     traces = None if trace_len is None else torch.stack(bufs)
     return (torch.stack(coefs), torch.stack(niters),
             (st.x, st.y, st.z, st.rho), traces)

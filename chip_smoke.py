@@ -1467,22 +1467,23 @@ JAX_CPU_NITER = {("lasso", 2): (1886, 76), ("lasso", 4): (2147, 93),
 PADMM_MS = {"lasso": 512.5, "wide": 5345.6}
 
 
-def chunk_sweep(torch, cons, fit, modes, reps=3):
+def chunk_sweep(torch, engine, fit, modes, reps=3):
     """Median-of-``reps`` host-clock times of ``fit`` for each (loop,
-    chunk) of ``modes``, in turns there and back: "eager" runs the chunk
-    op by op, "graph" replays it as a CUDA graph; ``_CHUNK`` iterations
-    between two host reads."""
-    chunk, graphed = cons._CHUNK, cons._graphed
+    chunk) of ``modes``, in turns there and back: "eager" is the host
+    loop's op-by-op route (one host read an iteration), "graph" replays
+    groups of ``_CHUNK`` iterations as CUDA graphs, one host read a
+    group."""
+    chunk, route = engine._CHUNK, engine._route
     times = {}
     try:
         for mode, k in modes + modes[::-1]:
-            cons._CHUNK = k
-            cons._graphed = (graphed if mode == "graph"
-                             else lambda advance, *a: advance)
+            engine._CHUNK = k
+            engine._route = (route if mode == "graph"
+                             else lambda *a: "eager")
             times.setdefault((mode, k), []).append(
                 host_median_ms(torch, fit, reps=reps)[0])
     finally:
-        cons._CHUNK, cons._graphed = chunk, graphed
+        engine._CHUNK, engine._route = chunk, route
     return times
 
 
@@ -1504,7 +1505,7 @@ def consensus_phase(torch, smoke, record, X, y, Xw, yw, A, b, x0):
     from types import SimpleNamespace
 
     import admm_tpu_torch as t
-    from admm_tpu_torch.parallel import consensus as cons
+    from admm_tpu_torch.core import engine
 
     print("phase: consensus", flush=True)
     t_phase = time.perf_counter()
@@ -1614,11 +1615,12 @@ def consensus_phase(torch, smoke, record, X, y, Xw, yw, A, b, x0):
         ms, out = host_median_ms(torch, fit, reps=3)
         print(f"  admm_lasso().parallel(2).fit() {Xn.shape[0]} x "
               f"{Xn.shape[1]}: {ms:.1f} ms, median of 3 (host clock, "
-              f"_CHUNK = {cons._CHUNK}; reference padmm {PADMM_MS[key]} ms), "
-              f"{ms / int(out.niter.sum()):.3f} ms per iteration", flush=True)
-    times = chunk_sweep(torch, cons, lambda: t.admm_lasso(X, y).parallel(2)
-                        .fit(), [("eager", 1), ("graph", 1),
-                                 ("graph", cons._CHUNK)])
+              f"_CHUNK = {engine._CHUNK}; reference padmm {PADMM_MS[key]} "
+              f"ms), {ms / int(out.niter.sum()):.3f} ms per iteration",
+              flush=True)
+    times = chunk_sweep(torch, engine, lambda: t.admm_lasso(X, y)
+                        .parallel(2).fit(), [("eager", 1), ("graph", 1),
+                                             ("graph", engine._CHUNK)])
     print("  flagship at W = 2 by loop (median of 3 each, in turns there and "
           "back): " + ", ".join(f"{m} _CHUNK = {k}: "
                                 + ", ".join(f"{v:.1f}" for v in vs) + " ms"
@@ -2091,7 +2093,7 @@ def meshes_phase(torch, smoke, record, X, y, Xw, yw, A, b):
     import torch.distributed as dist
 
     import admm_tpu_torch as t
-    from admm_tpu_torch.parallel import consensus as cons
+    from admm_tpu_torch.core.engine import _route
     from admm_tpu_torch.parallel.mesh import make_mesh
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2117,7 +2119,7 @@ def meshes_phase(torch, smoke, record, X, y, Xw, yw, A, b):
     same_bits("consensus flagship W = 8 on 4 positions", meshed, plain)
     print(f"  consensus flagship W = 8 on 4 positions of cuda:0: {ms:.1f} ms"
           f" (host clock, first call), route "
-          f"{cons._route(dev, True, m4)}, niter total "
+          f"{_route(dev, True, m4)}, niter total "
           f"{int(meshed.niter.sum())}", flush=True)
     cv_plain = t.cv_lasso_path(X, y, nfolds=10)
     cv_mesh, ms = counted("cv_lasso_path(X, y, nfolds=10, fold_mesh=5)",
@@ -2217,7 +2219,7 @@ def meshes_phase(torch, smoke, record, X, y, Xw, yw, A, b):
                             world_size=1, rank=0)
     try:
         mn = make_mesh(group=dist.group.WORLD)
-        route = cons._route(dev, True, mn)
+        route = _route(dev, True, mn)
         smoke.check(route == "graph", f"NCCL one rank: route {route}")
         plain = t.parallel_lasso_path(X, y, nworkers=4)
         out, ms = counted("parallel_lasso_path(nworkers=4), NCCL mesh",

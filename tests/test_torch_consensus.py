@@ -7,11 +7,10 @@ workers as a batch axis) and the port on ``device="cpu"``.
 Bars: float64 coefficients and intercepts within 1e-8 and ``niter``
 within 1 per lambda for every driver; the float32 tall Lasso within 1e-5
 (plus rtol 1e-5) and ``niter`` within 1, the wide one within the larger
-of 1e-5 and the JAX package's own float32-to-float64 gap there.  The chunked loop (one host
-read per ``_CHUNK`` iterations) must give the bits and ``niter`` of a
-loop that reads every iteration (``_CHUNK = 1``), and a path resumed
-from the other package's state after two lambdas (``interop``) must equal
-the uninterrupted one.
+of 1e-5 and the JAX package's own float32-to-float64 gap there.  A path
+resumed from the other package's state after two lambdas (``interop``)
+must equal the uninterrupted one.  The host loop's two routes are held
+to each other in ``tests/test_torch_engine_chunks.py``.
 """
 from functools import partial
 
@@ -230,22 +229,6 @@ def test_trace_rows_match_jax(data, case):
                 ).sum(axis=1)
     np.testing.assert_array_equal(recorded,
                                   np.minimum(niter, trace.shape[-2]))
-
-
-def test_chunked_loop_equals_one_read_per_iteration(data, monkeypatch):
-    """Frozen iterations change nothing: the same bits, ``niter`` and
-    trace rows as a loop that reads the flag every iteration."""
-    call = partial(admm_tpu_torch.parallel_lasso_path, data["Xw"],
-                   data["yw"], nworkers=2, nlambda=5, trace_len=40,
-                   device="cpu")
-    chunked = call()
-    assert tcons._CHUNK > 1
-    monkeypatch.setattr(tcons, "_CHUNK", 1)
-    single = call()
-    for f in ("coef", "beta0", "niter"):
-        assert torch.equal(getattr(chunked, f), getattr(single, f)), f
-    assert torch.equal(torch.nan_to_num(chunked.trace, nan=-1.0),
-                       torch.nan_to_num(single.trace, nan=-1.0))
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])

@@ -1305,14 +1305,15 @@ def test_consensus_on_the_card_launches_nothing_and_equals_the_cpu(dev,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_consensus_chunked_loop_equals_one_read_per_iteration_on_the_card(
         dev, dtype, monkeypatch):
-    """One host read per ``_CHUNK`` iterations on the card: the same bits,
-    niter and trace rows as a read every iteration (``_CHUNK = 1``)."""
-    from admm_tpu_torch.parallel import consensus
+    """One host read per ``_CHUNK`` iterations of the engine's host loop
+    on the card: the same bits, niter and trace rows as a read every
+    iteration (``_CHUNK = 1``)."""
+    from admm_tpu_torch.core import engine
 
     call = _consensus_call("lasso_wide")
     chunked = call(device=dev, dtype=dtype, trace_len=64)
-    assert consensus._CHUNK > 1
-    monkeypatch.setattr(consensus, "_CHUNK", 1)
+    assert engine._CHUNK > 1
+    monkeypatch.setattr(engine, "_CHUNK", 1)
     single = call(device=dev, dtype=dtype, trace_len=64)
     for f in ("coef", "beta0", "niter"):
         assert torch.equal(getattr(chunked, f), getattr(single, f)), f
@@ -1324,15 +1325,16 @@ def test_consensus_chunked_loop_equals_one_read_per_iteration_on_the_card(
                                     "logistic", "multinomial"])
 def test_consensus_graph_equals_the_eager_loop_on_the_card(dev, driver,
                                                            monkeypatch):
-    """The chunk as a CUDA graph runs the eager loop's kernels in its
-    order: the same coefficients and niter to the bit (the group prox's
-    segment sums are a product, not atomics), in float32 and traced."""
-    from admm_tpu_torch.parallel import consensus
+    """The host loop's group as a CUDA graph runs the op-by-op loop's
+    kernels in its order: the same coefficients, niter and trace rows to
+    the bit as with the route forced to the op-by-op loop (the group
+    prox's segment sums are a product, not atomics), in float32."""
+    from admm_tpu_torch.core import engine
 
     call = _consensus_call(driver)
     kw = dict(device=dev, dtype=torch.float32, trace_len=32)
     graphed = call(**kw)
-    monkeypatch.setattr(consensus, "_graphed", lambda advance, *a: advance)
+    monkeypatch.setattr(engine, "_route", lambda *a: "eager")
     eager = call(**kw)
     for f in ("coef", "beta0", "niter"):
         assert torch.equal(getattr(graphed, f), getattr(eager, f)), f
@@ -1341,35 +1343,45 @@ def test_consensus_graph_equals_the_eager_loop_on_the_card(dev, driver,
                            torch.nan_to_num(eager.trace, nan=-1.0))
 
 
-@pytest.mark.parametrize("regime", ["wide_scan", "tall_factors"])
+@pytest.mark.parametrize("regime", ["wide_scan", "tall_factors",
+                                    "wide_traced", "tall_batch_factors",
+                                    "wide_batch_traced"])
 def test_engine_graph_equals_the_eager_loop_on_the_card(dev, regime,
                                                         monkeypatch):
-    """A single solve's chunks as a CUDA graph run the op-by-op loop's
-    kernels in its order: ``lasso_path`` on the wide scan path (200 x
-    400, sent to the engine: the wide scan kernel would take it) and the
-    tall path with penalty factors gives the same beta, niter and lambda
-    to the bit as with the route forced to the eager loop.  Every device
-    iteration of the graphed run is a graphed one, none of the eager
-    run's; the second shape's call captures anew."""
+    """The engine's host loop as CUDA graphs runs the op-by-op loop's
+    kernels in its order, for a single solve, a traced one, batched lanes
+    and traced lanes: ``lasso_path`` on the wide scan path (200 x 400,
+    sent to the engine: the wide scan kernel would take it), the tall
+    path with penalty factors, the wide path traced, the tall batch path
+    with factors and the wide batch path traced give the same beta, niter,
+    lambda and trace rows to the bit as with the route forced to the
+    op-by-op loop.  Every device iteration of the graphed run is a
+    graphed one, none of the eager run's; the second shape's call
+    captures anew."""
     import admm_tpu_torch as t
     from admm_tpu_torch.core import engine
     from admm_tpu_torch.diag import profile
     from admm_tpu_torch.models import lasso
 
-    shapes = ([(200, 400), (150, 320)] if regime == "wide_scan"
-              else [(300, 40), (260, 30)])
+    tall = regime.startswith("tall")
+    batch = "batch" in regime
+    shapes = [(300, 40), (260, 30)] if tall else [(200, 400), (150, 320)]
     monkeypatch.setattr(lasso, "_use_kernel_wide_scan", lambda *a: False)
 
     def call(n, p):
         rng = np.random.default_rng(n + p)
         X = rng.normal(size=(n, p))
         y = X[:, :8] @ rng.uniform(-1, 1, 8) + 0.5 * rng.normal(size=n)
-        kw = dict(nlambda=20, device=dev, dtype=torch.float32)
-        if regime == "tall_factors":
+        kw = dict(nlambda=20, device=dev, dtype=torch.float32,
+                  path_mode="batch" if batch else "scan")
+        if "factors" in regime:
             kw["penalty_factor"] = np.linspace(0.2, 2.0, p)
+        if "traced" in regime:
+            kw["trace_len"] = 40
         with profile.record() as rec:
             res = t.lasso_path(X, y, **kw)
         assert res.coef.device.type == "cuda"
+        assert (res.trace is not None) == ("traced" in regime)
         return res, rec
 
     graphed = [call(*s) for s in shapes]
@@ -1378,10 +1390,16 @@ def test_engine_graph_equals_the_eager_loop_on_the_card(dev, regime,
     for (g, g_rec), (e, e_rec) in zip(graphed, eager):
         for f in ("coef", "beta0", "niter", "lambdas"):
             assert torch.equal(getattr(g, f), getattr(e, f)), f
+        if g.trace is not None:
+            assert torch.equal(torch.nan_to_num(g.trace, nan=-1.0),
+                               torch.nan_to_num(e.trace, nan=-1.0))
+        # A batched step moves every lane: the loop's iterations are the
+        # slowest lane's.
+        steps = int(g.niter.max() if batch else g.niter.sum())
         iters = g_rec.total("engine.iterations")
-        assert iters >= int(g.niter.sum()) > 0
+        assert iters >= steps > 0
         assert g_rec.total("engine.graphed_iterations") == iters
-        assert e_rec.total("engine.iterations") == int(e.niter.sum())
+        assert e_rec.total("engine.iterations") == steps
         assert e_rec.total("engine.graphed_iterations") == 0
 
 
@@ -1516,7 +1534,7 @@ def test_nccl_group_of_one_rank_captures_the_gather(dev):
     import torch.distributed as dist
 
     import admm_tpu_torch as t
-    from admm_tpu_torch.parallel import consensus
+    from admm_tpu_torch.core import engine
     from admm_tpu_torch.parallel.mesh import make_mesh
 
     with socket.socket() as s:
@@ -1526,7 +1544,7 @@ def test_nccl_group_of_one_rank_captures_the_gather(dev):
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(group=dist.group.WORLD)
-        assert consensus._route(dev, True, mesh) == "graph"
+        assert engine._route(dev, True, mesh) == "graph"
         X, y = _mesh_problem()
         a = t.parallel_lasso_path(X, y, nworkers=4, nlambda=10)
         b = t.parallel_lasso_path(X, y, nworkers=4, nlambda=10, mesh=mesh)

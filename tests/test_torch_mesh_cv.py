@@ -225,7 +225,7 @@ def test_consensus_route_of_a_two_device_mesh():
     """A CUDA graph captures one device's work: a one-process mesh over
     two devices runs op by op, one over a single device (or no mesh) as a
     graph; a hook that reads the host, or the CPU, never captures."""
-    from admm_tpu_torch.parallel.consensus import _route
+    from admm_tpu_torch.core.engine import _route
 
     two = make_mesh(2, devices=["cuda:0", "cuda:1"])
     one = make_mesh(2, devices=["cuda:0"] * 2)
